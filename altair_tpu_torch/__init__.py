@@ -1,0 +1,28 @@
+"""altair_tpu_torch — the integrating-sphere photon tracer on PyTorch and
+CUDA (NVIDIA Hopper).
+
+A port of ``altair_tpu`` (JAX), which stays the reference it is tested
+against.  This package imports torch and never JAX.  Ported so far: the
+trace-once flux-map path — the direct and simulate engines of
+``trace_rays_auto``, the deferred rim post-pass, the trace-once scorer and
+``sweep.sweep_detector_trace_once`` — with the TPU bounce kernel rewritten
+as a CUDA kernel (``csrc/bounce.cu``).
+"""
+
+from .config import (  # noqa: F401
+    SCENE_DEMO,
+    SCENE_INSPHERE,
+    SCENE_OPTIMIZE,
+    SCENE_V1,
+    SOURCE_DEMO,
+    SOURCE_OVERNIGHT,
+    SOURCE_V1,
+    DetectorGrid,
+    SphereScene,
+    Source,
+    SurfaceModel,
+    TraceConfig,
+)
+from .core import TraceResult, Vec3, exit_count, trace_rays, trace_rays_auto  # noqa: F401
+
+__version__ = "0.1.0"
