@@ -5,8 +5,10 @@ A port of ``altair_tpu`` (JAX), which stays the reference it is tested
 against.  This package imports torch and never JAX.  Ported so far: the
 trace-once flux-map path — the direct and simulate engines of
 ``trace_rays_auto``, the deferred rim post-pass, the trace-once scorer and
-``sweep.sweep_detector_trace_once`` — with the TPU bounce kernel rewritten
-as a CUDA kernel (``csrc/bounce.cu``).
+``sweep.sweep_detector_trace_once`` — and the large-batch simulate path
+(the refill kernel's tail handoff and the wave-compaction tracer), with
+both TPU kernels rewritten as CUDA kernels (``csrc/bounce.cu``,
+``csrc/refill.cu``).
 """
 
 from .config import (  # noqa: F401

@@ -11,4 +11,4 @@ from .trace import (  # noqa: F401
     trace_rays_rim_deferred,
 )
 from .trace_direct import direct_applicable, trace_rays_direct  # noqa: F401
-from .trace_waves import trace_rays_auto  # noqa: F401
+from .trace_waves import trace_rays_auto, trace_rays_waves, waves_safe  # noqa: F401

@@ -3,9 +3,10 @@ them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface, so nvcc compiles it into a
 shared library in seconds (no PyTorch headers).  The library lands in
-``build/`` at the repository root, named by a hash of the source and the
-flags, so a changed source rebuilds and an unchanged one loads at once.
-Nothing here runs at import time: the first launch builds.
+``build/`` at the repository root, named by a hash of the source, the
+shared headers and the flags, so a changed source or header rebuilds and
+an unchanged one loads at once.  Nothing here runs at import time: the
+first launch builds; ``build`` starts one nvcc per kernel at once.
 """
 
 from __future__ import annotations
@@ -41,26 +42,47 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: named by a hash of the source and
-    the flags.  The compiler's output, with the register and spill counts
-    ptxas reports, lies beside it with the suffix ``.log``."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """Where ``csrc/<name>.cu`` builds to: named by a hash of the source,
+    of every header in ``csrc/`` (``*.cuh``, which the kernels share) and
+    of the flags, so an edited header rebuilds every kernel.  The
+    compiler's output, with the register and spill counts ptxas reports,
+    lies beside it with the suffix ``.log``."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build(*names: str) -> None:
+    """Build every ``csrc/<name>.cu`` of ``names`` that is not built yet:
+    one nvcc process each, all started at once, all waited for."""
+    jobs = []
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = CSRC / f"{name}.cu"
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(src)], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((src, lib, tmp, proc))
+    failed = []
+    for src, lib, tmp, proc in jobs:
+        out, err = proc.communicate()
+        lib.with_suffix(".log").write_text(out + err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src}:\n{err}")
+        else:
+            os.replace(tmp, lib)   # atomic: a concurrent build never half-loads
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``."""
-    src = CSRC / f"{name}.cu"
-    lib = library_path(name)
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-        os.replace(tmp, lib)   # atomic: a concurrent build never half-loads
-    return ctypes.CDLL(str(lib))
+    build(name)
+    return ctypes.CDLL(str(library_path(name)))

@@ -61,6 +61,15 @@ def no_overflow(device) -> RimOverflow:
     return RimOverflow(total=z, grouped_drops=z)
 
 
+def lossless(tracer):
+    """A tracer that loses no rays, as a ``main_tracer`` of
+    ``trace_rays_rim_deferred``: its result and a zero overflow count."""
+    def main(gen, scene, source, n_rays, cfg, *, device):
+        return (tracer(gen, scene, source, n_rays, cfg, device=device),
+                torch.zeros((), dtype=torch.int32, device=device))
+    return main
+
+
 def draw_seeds(gen: torch.Generator, k: int, hi: int = _SEED_HI) -> list[int]:
     """``k`` integers in [0, hi) drawn from the CPU key ``gen``."""
     if gen.device.type != "cpu":
@@ -259,8 +268,14 @@ def trace_rays(
     return TraceResult(status, pos, prev, direction, bounces)
 
 
-# continuations at least this wide ran the waves tracer in the JAX package
+# deferred-rim continuations at least this wide wave-compact their tail
+# (``trace_waves_from_state``) when there is no closed-form finish
 _WAVES_CONTINUATION_MIN = 65536
+# the wave schedule of that continuation, as in the JAX package
+# (RIM_CONT_FIRST_WAVE = None: the first wave is RIM_CONT_WAVE_ITERS long)
+RIM_CONT_WAVE_ITERS = 96
+RIM_CONT_SHRINK = 4
+RIM_CONT_FIRST_WAVE: int | None = None
 # hybrid-continuation tails at least this wide recurse into the hybrid
 # (module constant so tests can lower it)
 HYBRID_RECURSE_MIN = 32768
@@ -306,6 +321,15 @@ def _put(dst: torch.Tensor, sidx: torch.Tensor, src: torch.Tensor):
 def _put_vec(dst: Vec3, sidx, src: Vec3) -> Vec3:
     return Vec3(_put(dst.x, sidx, src.x), _put(dst.y, sidx, src.y),
                 _put(dst.z, sidx, src.z))
+
+
+def _put_result(dst: TraceResult, sidx, src: TraceResult) -> TraceResult:
+    """``_put`` of every field of ``src`` into ``dst``."""
+    return TraceResult(_put(dst.status, sidx, src.status),
+                       _put_vec(dst.last_point, sidx, src.last_point),
+                       _put_vec(dst.seg_start, sidx, src.seg_start),
+                       _put_vec(dst.direction, sidx, src.direction),
+                       _put(dst.n_bounces, sidx, src.n_bounces))
 
 
 def _compact_gather(mask, vecs, ints, capacity: int, n: int,
@@ -442,15 +466,20 @@ def trace_rays_rim_deferred(
 
     1. main trace with ``exact_rim=False`` (``main_tracer``, called as
        ``main_tracer(gen, scene, source, n, cfg, device=device)``; default
-       ``trace_rays``);
+       ``lossless(trace_rays)``).  It returns ``(TraceResult,
+       n_overflow)``; its count of rays lost goes into
+       ``RimOverflow.total``;
     2. clip-test each exited lane's escape flight against the rim cone;
     3. compact the clipped lanes into an ``n_rays >> capacity_shift``
        buffer, apply the first rim bounce, and finish them with the
-       exact-rim step (the hybrid continuation for Lambertian scenes);
+       exact-rim step: the hybrid continuation for Lambertian scenes, else
+       the waves tracer at ``m >= _WAVES_CONTINUATION_MIN`` lanes and the
+       eager loop below that;
     4. scatter the continuation back over the clipped lanes.
 
     Returns ``(TraceResult, RimOverflow)``; ``RimOverflow.total`` counts
-    clipped rays beyond the buffer, left as optimistic EXITED.
+    clipped rays beyond the buffer, left as optimistic EXITED, and the
+    rays the main tracer and the waves continuation lost.
     """
     from .geometry import cone_crossing_t, cone_face_normal
     from .trace_direct import direct_applicable
@@ -463,9 +492,9 @@ def trace_rays_rim_deferred(
                          "in the deferred-rim pack")
     dtype = cfg.dtype
     k_main, k_first, k_cont = split(gen, 3)
-    main = main_tracer if main_tracer is not None else trace_rays
-    res = main(k_main, scene.with_(exact_rim=False), source, n_rays, cfg,
-               device=device)
+    main = main_tracer if main_tracer is not None else lossless(trace_rays)
+    res, main_overflow = main(k_main, scene.with_(exact_rim=False), source,
+                              n_rays, cfg, device=device)
 
     radius = f32(scene.inner_radius)
     r_out = f32(scene.outer_radius)
@@ -482,7 +511,7 @@ def trace_rays_rim_deferred(
     idx, valid, (c_pt, c_dir, c_prev), (c_b,), dropped = _compact_gather(
         clipped, [rim_pt, res.direction, res.seg_start], [res.n_bounces],
         m, n_rays, group_capacity=max(256, m >> 1))
-    n_overflow = n_overflow + dropped
+    n_overflow = n_overflow + dropped + main_overflow
     c_bounces = c_b + _i32(valid)
 
     # first rim bounce: roulette + the surface model about the rim normal
@@ -503,11 +532,23 @@ def trace_rays_rim_deferred(
          n_overflow2) = _rim_continuation_hybrid(
             k_cont, scene, carry, cfg, radius, r_out, cos_tm, INF, device)
         n_overflow = n_overflow + n_overflow2
+    elif m >= _WAVES_CONTINUATION_MIN:
+        # a wide continuation wave-compacts its tail: after the gap
+        # resolves only re-entrant lanes survive, and the eager loop would
+        # run the whole bounce tail at width m.  A schedule too tight for
+        # the buffer suspends live clipped lanes at a compaction; that
+        # count goes into RimOverflow.total.
+        from .trace_waves import trace_waves_from_state
+
+        res_c, cont_ovf = trace_waves_from_state(
+            k_cont, scene, carry, cfg, wave_iters=RIM_CONT_WAVE_ITERS,
+            shrink=RIM_CONT_SHRINK, min_wave=16384,
+            first_wave_iters=RIM_CONT_FIRST_WAVE, device=device)
+        pos, direction, prev = (res_c.last_point, res_c.direction,
+                                res_c.seg_start)
+        status, bounces = res_c.status, res_c.n_bounces
+        n_overflow = n_overflow + cont_ovf
     else:
-        # At m >= _WAVES_CONTINUATION_MIN the JAX package wave-compacts
-        # this continuation (trace_waves_from_state); that tracer is not
-        # ported yet (ROADMAP.md, queue 1: "Waves").  The eager loop below
-        # follows the same law at width m.
         step = make_bounce_step(k_cont, scene, m, cfg, device)
         block = max(1, min(int(cfg.block_iters), max_iters))
         pos, direction, prev, status, bounces, _ = _while_trace(
@@ -515,13 +556,9 @@ def trace_rays_rim_deferred(
         status = torch.where(status == RUNNING, SUSPENDED, status)
 
     sidx = torch.where(valid, idx, n_rays)
-    return TraceResult(
-        status=_put(res.status, sidx, status),
-        last_point=_put_vec(res.last_point, sidx, pos),
-        seg_start=_put_vec(res.seg_start, sidx, prev),
-        direction=_put_vec(res.direction, sidx, direction),
-        n_bounces=_put(res.n_bounces, sidx, bounces),
-    ), RimOverflow(total=n_overflow, grouped_drops=dropped)
+    return (_put_result(res, sidx, TraceResult(status, pos, prev, direction,
+                                               bounces)),
+            RimOverflow(total=n_overflow, grouped_drops=dropped))
 
 
 def exit_count(result: TraceResult, exit_port_z=-100.0) -> torch.Tensor:

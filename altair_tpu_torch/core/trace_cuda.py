@@ -1,16 +1,18 @@
-"""The bounce kernel's wrapper, its plain PyTorch version, and the simulate
+"""The kernels' wrappers, their plain PyTorch versions, and the simulate
 engine built on them — the counterpart of ``altair_tpu/core/trace_pallas.py``
-(``_bounce_kernel``, ``trace_rays_pallas``, ``trace_rays_fast``).
+(``_bounce_kernel``, ``trace_rays_pallas``, ``_refill_kernel``,
+``trace_rays_refill``, ``trace_rays_fast``).
 
-``bounce`` is the wrapper.  On a CUDA tensor it launches the hand-written
-kernel ``csrc/bounce.cu`` (built at first use by ``_build``) or raises; on a
-CPU tensor it runs ``bounce_plain``, the same computation in plain tensor
-ops.  There is no fallback from one to the other.
+``bounce`` and ``refill`` are the wrappers.  On a CUDA tensor each launches
+its hand-written kernel (``csrc/bounce.cu``, ``csrc/refill.cu``, built at
+first use by ``_build``) or raises; on a CPU tensor it runs its plain
+version (``bounce_plain``, ``refill_plain``), the same computation in
+plain tensor ops.  There is no fallback from one to the other.
 
-Dispatch: the JAX package hands batches of n >= 2^20 to its refill kernel
-(``trace_pallas.py::_refill_kernel``).  That kernel is not ported yet, so
-the port runs the bounce kernel at every n until refill is ported and
-measured against it on the card.
+Dispatch, as in the JAX package: batches of n >= ``REFILL_MIN`` run the
+refill kernel with ``_REFILL_BUDGET`` rays per lane and the tail handoff
+at ``_REFILL_HANDOFF``, whose stragglers finish in the waves tracer; smaller
+batches run the bounce kernel.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -25,16 +28,32 @@ import torch
 from ..config import SphereScene, Source, SurfaceModel, TraceConfig
 from . import _build
 from .geometry import Vec3
+from .compact import nonzero_indices_grouped
 from .trace import (ABSORBED, EXITED, RUNNING, SUSPENDED, RimOverflow,
-                    TraceResult, draw_seeds, no_overflow,
-                    rim_deferred_capacity_shift, trace_rays_rim_deferred)
+                    TraceResult, _i32, _put_result, draw_seeds,
+                    no_overflow, rim_deferred_capacity_shift, split,
+                    trace_rays, trace_rays_rim_deferred)
 
-KERNEL_SOURCE = "altair_tpu_torch/csrc/bounce.cu"
-REPLACES = "altair_tpu/core/trace_pallas.py:247"
+# per kernel: its source and the Pallas kernel it replaces
+KERNELS = {
+    "bounce": ("altair_tpu_torch/csrc/bounce.cu",
+               "altair_tpu/core/trace_pallas.py:247"),
+    "refill": ("altair_tpu_torch/csrc/refill.cu",
+               "altair_tpu/core/trace_pallas.py:399"),
+}
 
 # launches of each kernel since the last reset: a run shows it went through
 # the kernel by reading these
-launch_counts = {"bounce": 0}
+launch_counts = {"bounce": 0, "refill": 0}
+
+# lanes of one refill thread block: the handoff unit (csrc/refill.cu LANES)
+REFILL_LANES = 256
+# batches at least this big run the refill kernel (the JAX package's
+# constants, trace_pallas.py:933-942; module constants so a test can lower
+# them)
+REFILL_MIN = 1 << 20
+_REFILL_BUDGET = 4
+_REFILL_HANDOFF = 0.01
 
 
 def reset_launch_counts() -> None:
@@ -261,6 +280,21 @@ def _scatter_dir(model, m0, m1, u, nx, ny, nz, dx, dy, dz):
     raise NotImplementedError(model)
 
 
+def _box_flight(mask, px, py, pz, dx, dy, dz, world_half):
+    """Fly the ``mask`` lanes from their point to the world box
+    (``trace_pallas.py::_box_flight``)."""
+    def axis_t(pc, dc):
+        face = torch.where(dc >= 0, world_half, -world_half)
+        return torch.where(dc == 0, torch.full_like(pc, math.inf),
+                           (face - pc) / dc)
+
+    tb = torch.minimum(axis_t(px, dx),
+                       torch.minimum(axis_t(py, dy), axis_t(pz, dz)))
+    return (torch.where(mask, px + dx * tb, px),
+            torch.where(mask, py + dy * tb, py),
+            torch.where(mask, pz + dz * tb, pz))
+
+
 def _check_args(seed, scene_vec, src_vec, n, model, max_bounces, rng):
     if rng not in RNG_MODES:
         raise ValueError(f"rng must be one of {RNG_MODES}, got {rng!r}")
@@ -348,17 +382,8 @@ def bounce_plain(seed, scene_vec, src_vec, n: int, model, max_bounces: int,
             it += 1
 
     # epilogue: exited lanes fly from the cap crossing to the world box
-    def axis_t(pc, dc):
-        face = torch.where(dc >= 0, world_half, -world_half)
-        return torch.where(dc == 0, torch.full_like(pc, math.inf),
-                           (face - pc) / dc)
-
-    tb = torch.minimum(axis_t(px, dx),
-                       torch.minimum(axis_t(py, dy), axis_t(pz, dz)))
-    exited = status == EXITED
-    px = torch.where(exited, px + dx * tb, px)
-    py = torch.where(exited, py + dy * tb, py)
-    pz = torch.where(exited, pz + dz * tb, pz)
+    px, py, pz = _box_flight(status == EXITED, px, py, pz, dx, dy, dz,
+                             world_half)
     status = torch.where(status == RUNNING, SUSPENDED, status)
     return TraceResult(status, Vec3(px, py, pz), Vec3(prevx, prevy, prevz),
                        Vec3(dx, dy, dz), bounces)
@@ -416,16 +441,239 @@ def bounce(seed, scene_vec, src_vec, n: int, model, max_bounces: int,
     raise ValueError(f"no bounce kernel for device {scene_vec.device}")
 
 
+# ---------------------------------------------------------------------------
+# The refill kernel
+# ---------------------------------------------------------------------------
+
+class LiveState(NamedTuple):
+    """The refill kernel's loop-exit carry, one entry per lane (written
+    with the tail handoff).  A lane whose last ray finished reads as a
+    fresh source ray with ``ray_idx == budget``."""
+
+    pos: Vec3
+    direction: Vec3
+    ray_idx: torch.Tensor   # [n / budget] int32: the slot of its live ray
+    bounces: torch.Tensor   # [n / budget] int32: that ray's bounces so far
+
+
+def _check_refill_args(n, budget, thresh, lane_block):
+    if budget < 1 or thresh < 0 or lane_block < 1:
+        raise ValueError("budget and lane_block must be >= 1, thresh >= 0")
+    if n % (lane_block * budget):
+        raise ValueError(f"n must be a multiple of lane_block * budget = "
+                         f"{lane_block * budget}, got {n}")
+
+
+def refill_plain(seed, scene_vec, src_vec, n: int, model, max_bounces: int,
+                 budget: int, thresh: int = 0, rng: str = "philox",
+                 lane_block: int = REFILL_LANES
+                 ) -> tuple[TraceResult, LiveState | None]:
+    """The refill kernel's computation in plain tensor ops, on the device
+    of ``scene_vec``.  ``n / budget`` lanes in blocks of ``lane_block``;
+    each block runs the loop until its handoff check (every
+    ``INNER_ITERS`` iterations) finds ``it >= max_bounces * budget`` or at
+    most ``thresh`` of its rays left, and then stays as it is.  Slot ``j``
+    of lane ``l`` in block ``b`` is flat index ``b*budget*lane_block +
+    j*lane_block + l``; slots never reached read RUNNING with zero fields.
+    ``lane_block=16384`` is the Pallas kernel's layout and block."""
+    _check_args(seed, scene_vec, src_vec, n, model, max_bounces, rng)
+    _check_refill_args(n, budget, thresh, lane_block)
+    model = SurfaceModel(model)
+    dev = scene_vec.device
+    radius, cos_cap, reflectance, world_half = (scene_vec[0], scene_vec[1],
+                                                scene_vec[2], scene_vec[3])
+    m0, m1 = scene_vec[6], scene_vec[7]
+    inv_r = 1.0 / radius
+    nd = N_DRAWS[model]
+    seed0, seed1 = int(seed[0]) & _M32, int(seed[1]) & _M32
+    n_lanes = n // budget
+    n_blocks = n_lanes // lane_block
+
+    lane = torch.arange(n_lanes, dtype=torch.int64, device=dev)
+    lane_h = _fmix32((lane & _M32) ^ (seed0 ^ seed1))
+    blk = lane // lane_block
+    base = blk * (budget * lane_block) + (lane - blk * lane_block)
+    sx0, sy0, sz0, dx0, dy0, dz0 = (src_vec[i] for i in range(6))
+    zt = torch.zeros((n_lanes,), dtype=torch.float32, device=dev)
+    px, py, pz = sx0 + zt, sy0 + zt, sz0 + zt
+    dx, dy, dz = dx0 + zt, dy0 + zt, dz0 + zt
+    ray_idx = torch.zeros((n_lanes,), dtype=torch.int32, device=dev)
+    rbounces = torch.zeros((n_lanes,), dtype=torch.int32, device=dev)
+    # the slot planes, with one sink row at index n for lanes not writing
+    status_o, bounces_o = (torch.zeros((n + 1,), dtype=torch.int32,
+                                       device=dev) for _ in range(2))
+    segx, segy, segz, dirx, diry, dirz = (
+        torch.zeros((n + 1,), dtype=torch.float32, device=dev)
+        for _ in range(6))
+
+    block_live = torch.ones((n_blocks,), dtype=torch.bool, device=dev)
+    it = 0
+    while it < max_bounces * budget:
+        remaining = (budget - ray_idx).reshape(n_blocks, lane_block).sum(1)
+        block_live = block_live & (remaining > thresh)
+        if not bool(block_live.any()):
+            break
+        lane_live = block_live.repeat_interleave(lane_block)
+        for _ in range(INNER_ITERS):
+            active = lane_live & (ray_idx < budget)
+            b = px * dx + py * dy + pz * dz
+            c = px * px + py * py + pz * pz - radius * radius
+            disc = torch.clamp(b * b - c, min=0.0)
+            t = torch.clamp(-b + torch.sqrt(disc), min=0.0)
+            qx = px + dx * t
+            qy = py + dy * t
+            qz = pz + dz * t
+            rn = radius * torch.rsqrt(qx * qx + qy * qy + qz * qz)
+            qx, qy, qz = qx * rn, qy * rn, qz * rn
+            escaped = qz < cos_cap
+
+            if rng == "hash":
+                u = _hash_draws(lane_h, it, nd)
+            else:
+                u = _philox_draws(lane, it, nd, seed0, seed1)
+            survive = u[0] < reflectance
+            ndx, ndy, ndz = _scatter_dir(model, m0, m1, u, -qx * inv_r,
+                                         -qy * inv_r, -qz * inv_r,
+                                         dx, dy, dz)
+
+            done_exit = active & escaped
+            done_abs = active & ~escaped & ~survive
+            done_susp = (active & ~escaped & survive
+                         & (rbounces + 1 >= max_bounces))
+            done = done_exit | done_abs | done_susp
+            sidx = torch.where(done, base + ray_idx.long() * lane_block, n)
+            status_o[sidx] = _i32(torch.where(
+                done_exit, EXITED, torch.where(done_abs, ABSORBED,
+                                               SUSPENDED)))
+            segx[sidx], segy[sidx], segz[sidx] = qx, qy, qz
+            dirx[sidx], diry[sidx], dirz[sidx] = dx, dy, dz
+            bounces_o[sidx] = torch.where(done_exit, rbounces, rbounces + 1)
+
+            cont = active & ~done   # a wall bounce: the ray goes on
+            px = torch.where(done, sx0, torch.where(cont, qx, px))
+            py = torch.where(done, sy0, torch.where(cont, qy, py))
+            pz = torch.where(done, sz0, torch.where(cont, qz, pz))
+            dx = torch.where(done, dx0, torch.where(cont, ndx, dx))
+            dy = torch.where(done, dy0, torch.where(cont, ndy, dy))
+            dz = torch.where(done, dz0, torch.where(cont, ndz, dz))
+            rbounces = torch.where(done, 0, torch.where(cont, rbounces + 1,
+                                                        rbounces))
+            ray_idx = ray_idx + _i32(done)
+            it += 1
+
+    status_o, bounces_o = status_o[:n], bounces_o[:n]
+    seg = Vec3(segx[:n], segy[:n], segz[:n])
+    direction = Vec3(dirx[:n], diry[:n], dirz[:n])
+    last = Vec3(*_box_flight(status_o == EXITED, *seg, *direction,
+                             world_half))
+    live = (LiveState(Vec3(px, py, pz), Vec3(dx, dy, dz), ray_idx,
+                      _i32(rbounces)) if thresh > 0 else None)
+    return TraceResult(status_o, last, seg, direction, bounces_o), live
+
+
+@functools.cache
+def _refill_fn():
+    lib = _build.load("refill")
+    lanes = lib.altair_refill_lanes()
+    if lanes != REFILL_LANES:
+        raise RuntimeError(f"csrc/refill.cu has {lanes} lanes per block, "
+                           f"the wrapper {REFILL_LANES}")
+    fn = lib.altair_refill
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
+                    ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+                   + [ctypes.c_void_p] * 20)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _refill_cuda(seed, scene_vec, src_vec, n, model, max_bounces, budget,
+                 thresh, rng):
+    dev = scene_vec.device
+
+    def planes(k, shape):
+        return ([torch.empty(shape, dtype=torch.float32, device=dev)
+                 for _ in range(k)])
+
+    def ints(shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    # the kernel writes every slot, zeros where no ray finished
+    out = [ints((n,))] + planes(9, (n,)) + [ints((n,))]
+    live = (planes(6, (n // budget,)) + [ints((n // budget,)),
+                                         ints((n // budget,))]
+            if thresh > 0 else None)
+    if n:
+        fn = _refill_fn()
+        live_ptrs = ([t.data_ptr() for t in live] if live is not None
+                     else [None] * 8)
+        with torch.cuda.device(dev):
+            err = fn(scene_vec.data_ptr(), src_vec.data_ptr(),
+                     int(seed[0]) & _M32, int(seed[1]) & _M32,
+                     int(max_bounces), int(model), int(rng == "hash"), n,
+                     int(budget), int(thresh), *[o.data_ptr() for o in out],
+                     *live_ptrs, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"refill kernel launch failed: CUDA error {err}")
+        launch_counts["refill"] += 1
+    (status, lx, ly, lz, sx, sy, sz, dx, dy, dz, bounces) = out
+    res = TraceResult(status, Vec3(lx, ly, lz), Vec3(sx, sy, sz),
+                      Vec3(dx, dy, dz), bounces)
+    if live is None:
+        return res, None
+    return res, LiveState(Vec3(*live[0:3]), Vec3(*live[3:6]), live[6],
+                          live[7])
+
+
+def refill(seed, scene_vec, src_vec, n: int, model, max_bounces: int,
+           budget: int, thresh: int = 0, rng: str = "philox",
+           lane_block: int = REFILL_LANES
+           ) -> tuple[TraceResult, LiveState | None]:
+    """Trace ``n`` rays, ``budget`` back to back in each of ``n / budget``
+    lanes, under one static scatter law (simple-mode physics, no rim).
+
+    Returns the 11 per-slot fields as a ``TraceResult`` (unfinished slots
+    read RUNNING with zero fields) and, when ``thresh > 0``, the lanes'
+    ``LiveState``.  ``thresh`` is the handoff threshold: a block leaves
+    its loop once at most ``thresh`` of its rays are left.  ``n`` must be
+    a multiple of ``lane_block * budget``; the kernel's ``lane_block`` is
+    ``REFILL_LANES``, the plain version takes any.  Operands and ``rng``
+    as for ``bounce``.  A CUDA ``scene_vec`` launches the CUDA kernel; a
+    CPU one runs ``refill_plain``."""
+    _check_args(seed, scene_vec, src_vec, n, model, max_bounces, rng)
+    _check_refill_args(n, budget, thresh, lane_block)
+    if scene_vec.device.type == "cuda":
+        if lane_block != REFILL_LANES:
+            raise ValueError(f"the refill kernel's lane block is "
+                             f"{REFILL_LANES}, got {lane_block}")
+        return _refill_cuda(seed, scene_vec, src_vec, n, model, max_bounces,
+                            budget, thresh, rng)
+    if scene_vec.device.type == "cpu":
+        return refill_plain(seed, scene_vec, src_vec, n, model, max_bounces,
+                            budget, thresh, rng, lane_block)
+    raise ValueError(f"no refill kernel for device {scene_vec.device}")
+
+
 def _check_simulate(scene: SphereScene, cfg: TraceConfig):
     if not _model_supported(scene):
         raise NotImplementedError(
-            "the bounce kernel implements the four static scatter laws; "
+            "the kernels implement the four static scatter laws; "
             "custom scatter callables are not ported to altair_tpu_torch yet")
     if cfg.keep_history:
         raise NotImplementedError(
             "path history (keep_history) is not ported to altair_tpu_torch")
     if cfg.dtype != torch.float32:
-        raise NotImplementedError("the bounce kernel traces in float32 only")
+        raise NotImplementedError("the kernels trace in float32 only")
+
+
+def kernel_applicable(scene: SphereScene, cfg: TraceConfig) -> bool:
+    """True when ``trace_rays_fast`` runs the kernels (``pallas_applicable``
+    without the TPU test): a static law, float32, no history, and a rim
+    the deferred post-pass admits."""
+    if not (_model_supported(scene) and not cfg.keep_history
+            and cfg.dtype == torch.float32):
+        return False
+    return not scene.exact_rim or rim_deferred_capacity_shift(scene) is not None
 
 
 def trace_rays_bounce(
@@ -452,6 +700,128 @@ def trace_rays_bounce(
                   rng="philox")
 
 
+def trace_rays_refill(
+    gen: torch.Generator,
+    scene: SphereScene,
+    source: Source,
+    n_rays: int,
+    cfg: TraceConfig = TraceConfig(),
+    rays_per_lane: int = 8,
+    handoff_frac: float = 0.0,
+    *,
+    device,
+) -> tuple[TraceResult, torch.Tensor]:
+    """Simple-mode trace through the refill kernel (the counterpart of
+    ``trace_rays_refill``): ``n_rays`` a multiple of ``REFILL_LANES *
+    rays_per_lane``, the philox stream, the seed words drawn from ``gen``.
+    For exits ``seg_start`` is the cap crossing, on the escape line.
+
+    ``handoff_frac > 0`` turns on the tail handoff: each block leaves its
+    loop once at most ``int(handoff_frac * REFILL_LANES * rays_per_lane)``
+    of its rays are left, and the stragglers finish in the waves tracer
+    (``_refill_handoff_continue``); their ``seg_start`` is the last wall
+    point (the source for an exit at bounce 0), also on the escape line.
+
+    Returns ``(TraceResult, n_overflow)``: the rays the continuation lost.
+    The JAX function drops that count."""
+    chunk = REFILL_LANES * rays_per_lane
+    if n_rays % chunk:
+        raise ValueError(f"n_rays must be a multiple of {chunk}")
+    _check_simulate(scene, cfg)
+    if scene.exact_rim:
+        raise NotImplementedError(
+            "the refill kernel traces simple-mode physics; exact-rim scenes "
+            "go through trace_rays_fast (deferred rim post-pass)")
+    thresh = int(handoff_frac * chunk)
+    scene_vec, src_vec = kernel_operands(scene, source, device)
+    res, live = refill(seed_pair(gen), scene_vec, src_vec, n_rays,
+                       SurfaceModel(scene.surface_model),
+                       int(scene.max_bounces), rays_per_lane, thresh,
+                       rng="philox")
+    n_overflow = torch.zeros((), dtype=torch.int32, device=device)
+    if live is not None and n_rays:
+        res, n_overflow = _refill_handoff_continue(
+            split(gen, 1)[0], scene, cfg, res, live, src_vec, rays_per_lane,
+            thresh, device)
+    # slots that no ray reached (the iteration cap) are suspended
+    return (res._replace(status=torch.where(res.status == RUNNING, SUSPENDED,
+                                            res.status)), n_overflow)
+
+
+def _refill_handoff_continue(gen, scene, cfg, res, live: LiveState, src_vec,
+                             budget, thresh, device):
+    """Finish the refill kernel's stragglers in the waves tracer
+    (``trace_pallas.py::_refill_handoff_continue``).
+
+    A slot still RUNNING is the lane's live ray (slot == its ``ray_idx``:
+    it goes on from the live state) or one never started (a source ray).
+    A block leaves its loop with at most ``thresh`` rays left, so
+    ``n_blocks * thresh`` lanes hold them all and the grouped compaction
+    drops none; its drop count is added to the overflow all the same.
+
+    As in the JAX package, a straggler's bounce budget restarts: the waves
+    tracer caps its iterations at ``scene.max_bounces``, whatever bounces
+    the ray made in the kernel, so a ray could reach about twice the cap.
+    At the 4096 cap that needs a ray of more than 4096 bounces (P < 1e-15),
+    the same slack as the deferred-rim continuation's.
+
+    Returns ``(TraceResult, n_overflow)``."""
+    from .trace_waves import trace_waves_from_state
+
+    n = res.status.shape[0]
+    per_block = budget * REFILL_LANES
+    cap = (n // per_block) * thresh
+    pending = res.status == RUNNING
+    idx, dropped = nonzero_indices_grouped(pending, cap, n,
+                                           group_capacity=cap)
+    valid = idx < n
+    safe = torch.clamp(idx, max=n - 1)
+    blk = safe // per_block
+    rem = safe - blk * per_block
+    slot = rem // REFILL_LANES
+    lane = blk * REFILL_LANES + (rem - slot * REFILL_LANES)
+    is_live = valid & (slot == live.ray_idx[lane])
+
+    def pick(plane, src_value):
+        return torch.where(is_live, plane[lane], src_value)
+
+    pos = Vec3(*(pick(p, src_vec[i]) for i, p in enumerate(live.pos)))
+    dirv = Vec3(*(pick(d, src_vec[3 + i])
+                  for i, d in enumerate(live.direction)))
+    bounces0 = _i32(torch.where(is_live, live.bounces[lane], 0))
+    status0 = _i32(torch.where(valid, RUNNING, ABSORBED))
+    carry = (pos, dirv, pos, status0, bounces0,
+             torch.zeros((cap,), dtype=torch.bool, device=device))
+    cont, n_overflow = trace_waves_from_state(gen, scene, carry, cfg,
+                                              device=device)
+    return (_put_result(res, torch.where(valid, idx, n), cont),
+            n_overflow + dropped)
+
+
+def _slice(res: TraceResult, n: int) -> TraceResult:
+    return TraceResult(res.status[:n], Vec3(*(v[:n] for v in res.last_point)),
+                       Vec3(*(v[:n] for v in res.seg_start)),
+                       Vec3(*(v[:n] for v in res.direction)),
+                       res.n_bounces[:n])
+
+
+def _kernel_padded(gen, scene, source, n_rays, cfg, *, device):
+    """The simulate engine's main trace, ``(TraceResult, n_overflow)``:
+    the refill kernel with the tail handoff for n >= ``REFILL_MIN`` (the
+    batch padded up to a multiple of ``REFILL_LANES * _REFILL_BUDGET`` and
+    cut back), the bounce kernel otherwise."""
+    if n_rays >= REFILL_MIN:
+        chunk = REFILL_LANES * _REFILL_BUDGET
+        padded = -(-n_rays // chunk) * chunk
+        res, ovf = trace_rays_refill(gen, scene, source, padded, cfg,
+                                     rays_per_lane=_REFILL_BUDGET,
+                                     handoff_frac=_REFILL_HANDOFF,
+                                     device=device)
+        return (res if padded == n_rays else _slice(res, n_rays)), ovf
+    return (trace_rays_bounce(gen, scene, source, n_rays, cfg, device=device),
+            torch.zeros((), dtype=torch.int32, device=device))
+
+
 def trace_rays_fast(
     gen: torch.Generator,
     scene: SphereScene,
@@ -461,23 +831,26 @@ def trace_rays_fast(
     *,
     device,
 ) -> tuple[TraceResult, RimOverflow]:
-    """The simulate engine: the bounce kernel, composed with the deferred
-    rim post-pass for exact-rim scenes.
+    """The simulate engine: the bounce kernel, or the refill kernel and its
+    straggler finish at n >= ``REFILL_MIN``, composed with the deferred rim
+    post-pass for exact-rim scenes.  Scenes the kernels cannot take
+    (float64, a thick rim) run the eager ``trace_rays``, as the JAX
+    function falls back to its XLA kernel.
 
-    Returns ``(TraceResult, RimOverflow)`` — the JAX function drops the
-    overflow count; the port returns it so a caller can check it."""
-    _check_simulate(scene, cfg)
-    if not scene.exact_rim:
-        return (trace_rays_bounce(gen, scene, source, n_rays, cfg,
-                                  device=device),
+    Returns ``(TraceResult, RimOverflow)``; ``RimOverflow.total`` counts
+    rim-capacity overflow and the rays the refill handoff's continuation
+    lost.  The JAX function drops both counts; the port returns them so a
+    caller can check them."""
+    if not _model_supported(scene) or cfg.keep_history:
+        _check_simulate(scene, cfg)     # raises: neither is ported
+    if not kernel_applicable(scene, cfg):
+        return (trace_rays(gen, scene, source, n_rays, cfg, device=device),
                 no_overflow(device))
+    if not scene.exact_rim:
+        res, ovf = _kernel_padded(gen, scene, source, n_rays, cfg,
+                                  device=device)
+        return res, RimOverflow(total=ovf, grouped_drops=torch.zeros_like(ovf))
     shift = rim_deferred_capacity_shift(scene)
-    if shift is None:
-        raise NotImplementedError(
-            "a thick rim (or non-scalar scene parameters) needs the in-loop "
-            "exact-rim main trace, which is not wired to the bounce kernel "
-            "in altair_tpu_torch yet")
     return trace_rays_rim_deferred(gen, scene, source, n_rays, cfg,
                                    capacity_shift=shift,
-                                   main_tracer=trace_rays_bounce,
-                                   device=device)
+                                   main_tracer=_kernel_padded, device=device)

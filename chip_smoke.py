@@ -1,18 +1,22 @@
 #!/usr/bin/env python
 """Smoke run of altair_tpu_torch on one NVIDIA GPU (the Hopper port of the
-trace-once flux-map path).
+trace-once flux-map path and of the simulate engine's large-batch path).
 
     python3 chip_smoke.py
 
-Builds the CUDA bounce kernel from altair_tpu_torch/csrc, holds it against
-its plain PyTorch version, drives the headline job (production scene,
-SOURCE_OVERNIGHT, 100,000 rays, the full 180x90 detector grid) through
-``trace_rays_auto`` + ``fluxmap_trace_once_compact`` with both engines and
-through ``sweep_detector_trace_once``, and traces 4,194,304 rays through
-both engines.  Each phase prints one JSON line; any failed check raises,
-so the exit code is not 0.  The last three lines are the card's name and
-power limit from nvidia-smi, the kernel table as JSON, and the ok line.
-Exits non-zero without a CUDA device.  Imports no JAX.
+Builds the CUDA bounce and refill kernels from altair_tpu_torch/csrc (one
+nvcc each, in parallel), holds each against its plain PyTorch version,
+drives the headline job (production scene, SOURCE_OVERNIGHT, 100,000 rays,
+the full 180x90 detector grid) through ``trace_rays_auto`` +
+``fluxmap_trace_once_compact`` with both engines and through
+``sweep_detector_trace_once``, traces 4,194,304 rays through both engines
+(the simulate engine through the refill kernel, its tail handoff and the
+waves tracer), and times the refill kernel, its straggler finish and the
+simulate engine at 4M rays with and without the handoff.  Each phase
+prints one JSON line; any failed check raises, so the exit code is not 0.
+The last three lines are the card's name and power limit from nvidia-smi,
+the kernel table as JSON, and the ok line.  Exits non-zero without a CUDA
+device.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -67,6 +71,31 @@ def compare(a, b):
             if bool(agree.any()):
                 err = max(err, float(d[agree].max()))
     return float(agree.float().mean()), err
+
+
+def live_equal(a, b) -> bool:
+    """Two refill ``LiveState``s (or two Nones) hold the same values."""
+    if a is None or b is None:
+        return a is None and b is None
+    return (all(torch.equal(x, y) for x, y in zip(a.pos, b.pos))
+            and all(torch.equal(x, y) for x, y in zip(a.direction,
+                                                      b.direction))
+            and torch.equal(a.ray_idx, b.ray_idx)
+            and torch.equal(a.bounces, b.bounces))
+
+
+def cuda_ms(fn, reps=5) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches after a warm one
+    (CUDA events)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
 
 
 def phase_kernel_vs_plain(device, n=65_536, max_bounces=256):
@@ -189,15 +218,22 @@ def phase_sweep(device, save_folder, n=N_HEADLINE):
 
 def phase_scale(device, n=N_SCALE, seed=100, window=EXIT_WINDOW):
     """Trace-only throughput of both engines at n rays (one warm run, one
-    timed run each)."""
+    timed run each).  The simulate engine's run is this slice's main path:
+    the kernel counts are set to 0 just before it and read just after.
+    ``waves`` lists the wave tracer's plans that the timed run ran, in
+    call order: the refill handoff's straggler finish, then the rim
+    continuation."""
     from altair_tpu_torch import (SCENE_OPTIMIZE, SOURCE_OVERNIGHT,
                                   TraceConfig, trace_rays_auto)
+    from altair_tpu_torch.core import trace_cuda, trace_waves
 
     scene = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES)
     out = {"phase": "scale", "n_rays": n}
     for engine in ("auto", "simulate"):
         cfg = TraceConfig(engine=engine)
+        trace_cuda.reset_launch_counts()
         for i in range(2):
+            trace_waves.wave_plans.clear()
             sync(device)
             t0 = time.perf_counter()
             res, rim = trace_rays_auto(
@@ -210,15 +246,175 @@ def phase_scale(device, n=N_SCALE, seed=100, window=EXIT_WINDOW):
         check(int(rim) == 0, f"scale {engine}: rim overflow {int(rim)}")
         check(window[0] <= frac <= window[1],
               f"scale {engine}: exit fraction {frac} outside {window}")
-        out[engine] = {"s": dt, "rays_per_s": n / dt, "exit_fraction": frac}
+        out[engine] = {"s": dt, "rays_per_s": n / dt, "exit_fraction": frac,
+                       "rim_overflow": int(rim),
+                       "launches": dict(trace_cuda.launch_counts),
+                       "waves": list(trace_waves.wave_plans)}
+    check(out["simulate"]["launches"]["refill"] > 0,
+          "scale: the simulate engine never launched the refill kernel")
+    check(len(out["simulate"]["waves"]) == 2,
+          "scale: the simulate engine did not finish both the handoff and "
+          f"the rim continuation in the waves tracer: "
+          f"{out['simulate']['waves']}")
     fa, fs = out["auto"]["exit_fraction"], out["simulate"]["exit_fraction"]
     check(abs(fa - fs) < 4 * math.sqrt(2 * fa * (1 - fa) / n),
           f"scale: engines disagree, {fa} vs {fs}")
     return out
 
 
+def phase_refill_vs_plain(device, n=65_536, max_bounces=256, budget=4):
+    """The refill kernel against refill_plain at the same lane block, hash
+    stream, all four laws, without and with the handoff (fraction 0.4):
+    the 11 slot fields, and the 8 live planes when there are any."""
+    from altair_tpu_torch import SCENE_OPTIMIZE, SOURCE_OVERNIGHT, SurfaceModel
+    from altair_tpu_torch.core import trace_cuda
+
+    rows = {}
+    err_max = 0.0
+    for model in SurfaceModel:
+        scene = SCENE_OPTIMIZE.with_(max_bounces=max_bounces, exact_rim=False,
+                                     surface_model=model)
+        sv, srcv = trace_cuda.kernel_operands(scene, SOURCE_OVERNIGHT, device)
+        for frac in (0.0, 0.4):
+            thresh = int(frac * trace_cuda.REFILL_LANES * budget)
+            args = ((0, 2025), sv, srcv, n, int(model), max_bounces, budget,
+                    thresh)
+            k, k_live = trace_cuda.refill(*args, rng="hash")
+            sync(device)
+            p, p_live = trace_cuda.refill_plain(*args, rng="hash")
+            agree, err = compare(k, p)
+            same_live = live_equal(k_live, p_live)
+            name = f"{model.name}/thresh={thresh}"
+            rows[name] = {"agree": agree, "max_abs_err_cm": err,
+                          "live_equal": same_live,
+                          "pending": int((k.status == 0).sum()),
+                          "exit_fraction": float(
+                              (k.status == 1).float().mean())}
+            check(agree >= 0.999, f"refill {name}: {agree} of slots agree")
+            check(err <= 1e-3, f"refill {name}: positions differ by {err}")
+            check(same_live, f"refill {name}: live planes differ")
+            check(thresh == 0 or rows[name]["pending"] > 0,
+                  f"refill {name}: the handoff left no stragglers")
+            err_max = max(err_max, err)
+    return {"phase": "refill_vs_plain_hash", "n": n, "budget": budget,
+            "max_bounces": max_bounces, "laws": rows,
+            "max_abs_err_cm": err_max,
+            "tolerance": "agree>=0.999, |dx|<=1e-3 cm, live planes equal"}
+
+
+def phase_refill_timing(device, sizes=(1 << 20, N_SCALE)):
+    """The refill kernel at the simulate engine's main-trace shape
+    (production scene without the rim, philox, 4096 cap, budget 4,
+    handoff 0.01; n = N_SCALE is the main path's own launch) against the
+    bounce kernel at the same n, its plain version once at each n
+    (per-slot agreement, live planes and time), and the stragglers'
+    finish in the waves tracer."""
+    from altair_tpu_torch import (SCENE_OPTIMIZE, SOURCE_OVERNIGHT,
+                                  SurfaceModel, TraceConfig)
+    from altair_tpu_torch.core import trace_cuda
+
+    scene = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES, exact_rim=False)
+    sv, srcv = trace_cuda.kernel_operands(scene, SOURCE_OVERNIGHT, device)
+    budget = trace_cuda._REFILL_BUDGET
+    thresh = int(trace_cuda._REFILL_HANDOFF * trace_cuda.REFILL_LANES
+                 * budget)
+    law = int(SurfaceModel.LAMBERTIAN)
+    out = {"phase": "refill_timing", "budget": budget, "thresh": thresh,
+           "max_bounces": MAX_BOUNCES, "rng": "philox"}
+    for n in sizes:
+        args = ((7, 8), sv, srcv, n, law, MAX_BOUNCES)
+        row = {
+            "refill_ms": cuda_ms(lambda: trace_cuda.refill(
+                *args, budget, thresh, rng="philox")),
+            "refill_no_handoff_ms": cuda_ms(lambda: trace_cuda.refill(
+                *args, budget, 0, rng="philox")),
+            "bounce_ms": cuda_ms(lambda: trace_cuda.bounce(
+                *args, rng="philox")),
+        }
+        res, live = trace_cuda.refill(*args, budget, thresh, rng="philox")
+        row["stragglers"] = int((res.status == 0).sum())
+        row["continuation_width"] = (n // (trace_cuda.REFILL_LANES * budget)
+                                     * thresh)
+        cont_s = []
+        for i in range(2):          # the first call warms the eager ops
+            sync(device)
+            t0 = time.perf_counter()
+            fin, ovf = trace_cuda._refill_handoff_continue(
+                torch.Generator().manual_seed(i), scene, TraceConfig(), res,
+                live, srcv, budget, thresh, device)
+            int(ovf)
+            sync(device)
+            cont_s.append(time.perf_counter() - t0)
+        row["continuation_s"] = cont_s
+        row["continuation_overflow"] = int(ovf)
+        check(int(ovf) == 0, f"refill n={n}: continuation overflow {int(ovf)}")
+        check(not bool((fin.status == 0).any()),
+              f"refill n={n}: slots left RUNNING after the continuation")
+        row["mean_bounces"] = float(fin.n_bounces.float().mean())
+        sync(device)
+        t0 = time.perf_counter()
+        p, p_live = trace_cuda.refill_plain(*args, budget, thresh,
+                                            rng="philox")
+        sync(device)
+        row["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        agree, err = compare(res, p)
+        row.update(agree=agree, max_abs_err_cm=err,
+                   live_equal=live_equal(live, p_live))
+        check(agree >= 0.999, f"refill n={n}: {agree} of slots agree")
+        check(err <= 1e-3, f"refill n={n}: positions differ by {err}")
+        check(row["live_equal"], f"refill n={n}: live planes differ")
+        out[str(n)] = row
+    return out
+
+
+def phase_simulate_e2e(device, n=N_SCALE, seed=300):
+    """The simulate engine end to end at n rays (production scene with
+    the exact rim) through the refill kernel with the handoff at
+    _REFILL_HANDOFF and at 0, and through the bounce kernel alone
+    (REFILL_MIN raised), in turns A B C C B A; host clock to a device
+    sync and the exit-count readback, after one warm run each."""
+    from altair_tpu_torch import (SCENE_OPTIMIZE, SOURCE_OVERNIGHT,
+                                  TraceConfig, trace_rays_auto)
+    from altair_tpu_torch.core import trace_cuda
+
+    scene = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES)
+    cfg = TraceConfig(engine="simulate")
+    variants = {
+        "refill_handoff": (trace_cuda.REFILL_MIN, trace_cuda._REFILL_HANDOFF),
+        "refill_no_handoff": (trace_cuda.REFILL_MIN, 0.0),
+        "bounce": (1 << 62, trace_cuda._REFILL_HANDOFF),
+    }
+    saved = (trace_cuda.REFILL_MIN, trace_cuda._REFILL_HANDOFF)
+    times = {k: [] for k in variants}
+    fracs = {}
+    try:
+        order = list(variants) + list(reversed(variants))
+        for i, name in enumerate(list(variants) + order):
+            trace_cuda.REFILL_MIN, trace_cuda._REFILL_HANDOFF = variants[name]
+            sync(device)
+            t0 = time.perf_counter()
+            res, rim = trace_rays_auto(torch.Generator().manual_seed(seed + i),
+                                       scene, SOURCE_OVERNIGHT, n, cfg,
+                                       device=device)
+            n_exit = int(res.exited_port_mask().sum())
+            sync(device)
+            dt = time.perf_counter() - t0
+            check(int(rim) == 0, f"simulate {name}: overflow {int(rim)}")
+            if i >= len(variants):      # the first pass warms each variant
+                times[name].append(dt)
+                fracs[name] = n_exit / n
+    finally:
+        trace_cuda.REFILL_MIN, trace_cuda._REFILL_HANDOFF = saved
+    for name, f in fracs.items():
+        check(EXIT_WINDOW[0] <= f <= EXIT_WINDOW[1],
+              f"simulate {name}: exit fraction {f} outside {EXIT_WINDOW}")
+    return {"phase": "simulate_e2e", "n_rays": n, "order": "ABCCBA",
+            "times_s": times, "best_s": {k: min(v) for k, v in times.items()},
+            "exit_fraction": fracs}
+
+
 def phase_kernel_timing(device, n=N_HEADLINE, kernel_reps=5, plain_reps=2):
-    """The kernel and its plain version at the main path's shape (the
+    """The bounce kernel and its plain version at the headline's shape (the
     simulate engine's main trace: production scene without the rim,
     philox, 4096-bounce cap): per-lane agreement and times."""
     from altair_tpu_torch import SCENE_OPTIMIZE, SOURCE_OVERNIGHT, SurfaceModel
@@ -227,19 +423,9 @@ def phase_kernel_timing(device, n=N_HEADLINE, kernel_reps=5, plain_reps=2):
     scene = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES, exact_rim=False)
     sv, srcv = trace_cuda.kernel_operands(scene, SOURCE_OVERNIGHT, device)
     args = ((7, 8), sv, srcv, n, int(SurfaceModel.LAMBERTIAN), MAX_BOUNCES)
-    k = trace_cuda.bounce(*args, rng="philox")          # warm
-    sync(device)
-    if torch.device(device).type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(kernel_reps):
-            k = trace_cuda.bounce(*args, rng="philox")
-        stop.record()
-        torch.cuda.synchronize(device)
-        kernel_ms = start.elapsed_time(stop) / kernel_reps
-    else:
-        kernel_ms = None
+    kernel_ms = cuda_ms(lambda: trace_cuda.bounce(*args, rng="philox"),
+                        kernel_reps)
+    k = trace_cuda.bounce(*args, rng="philox")
     plain_times = []
     for _ in range(plain_reps):
         sync(device)
@@ -276,16 +462,21 @@ def main() -> int:
 
     smi = nvidia_smi()
     t0 = time.perf_counter()
-    _build.load("bounce")
+    _build.build(*trace_cuda.KERNELS)       # one nvcc per kernel, at once
     build_s = time.perf_counter() - t0
-    with open(_build.library_path("bounce").with_suffix(".log")) as fh:
-        ptxas = [ln.strip() for ln in fh if "registers" in ln]
+    ptxas = {}
+    for name in trace_cuda.KERNELS:
+        _build.load(name)
+        with open(_build.library_path(name).with_suffix(".log")) as fh:
+            ptxas[name] = [ln.strip() for ln in fh if "registers" in ln]
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "ptxas": ptxas})
 
     emit(phase_kernel_vs_plain(device))
+    refill_hash = phase_refill_vs_plain(device)
+    emit(refill_hash)
 
     direct = phase_headline(device, "auto", seed=args.seed)
     emit(direct)
@@ -305,16 +496,33 @@ def main() -> int:
           f"map totals {direct['map_total']} vs {sim['map_total']} "
           f"(sigma {sigma})")
 
-    emit(phase_scale(device))
+    # this slice's main path (the refill kernel at 4M rays): the counts
+    # are set to 0 and read inside the phase
+    scale = phase_scale(device)
+    emit(scale)
     timing = phase_kernel_timing(device)
     emit(timing)
+    refill_timing = phase_refill_timing(device)
+    emit(refill_timing)
+    emit(phase_simulate_e2e(device))
 
+    # the refill row's times are at the main path's shape (N_SCALE rays)
+    r_main = refill_timing[str(N_SCALE)]
+    refill_err = max([refill_hash["max_abs_err_cm"]]
+                     + [r["max_abs_err_cm"] for r in refill_timing.values()
+                        if isinstance(r, dict)])
+    rows = {
+        "bounce": (launches, timing["max_abs_err_cm"], timing["kernel_ms"],
+                   timing["plain_ms"]),
+        "refill": (scale["simulate"]["launches"]["refill"], refill_err,
+                   r_main["refill_ms"], r_main["plain_ms"]),
+    }
     print(smi)
-    emit({"kernels": [{
-        "name": "bounce", "route": "cuda",
-        "source": trace_cuda.KERNEL_SOURCE, "replaces": trace_cuda.REPLACES,
-        "launches": launches, "max_abs_err": timing["max_abs_err_cm"],
-        "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"]}]})
+    emit({"kernels": [
+        {"name": name, "route": "cuda", "source": trace_cuda.KERNELS[name][0],
+         "replaces": trace_cuda.KERNELS[name][1], "launches": n_launch,
+         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        for name, (n_launch, err, ms, plain_ms) in rows.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

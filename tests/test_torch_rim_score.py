@@ -12,7 +12,7 @@ from altair_tpu.config import SCENE_OPTIMIZE, SOURCE_OVERNIGHT, DetectorGrid, Tr
 from altair_tpu.core.trace import trace_rays_rim_deferred as j_rim
 from altair_tpu.core.trace_direct import trace_rays_direct as j_direct
 from altair_tpu_torch import convert
-from altair_tpu_torch.core.trace import (EXITED, _put,
+from altair_tpu_torch.core.trace import (EXITED, _put, lossless,
                                          rim_deferred_capacity_shift,
                                          trace_rays_rim_deferred)
 from altair_tpu_torch.core.trace_direct import trace_rays_direct
@@ -96,7 +96,7 @@ def test_rim_deferred_exit_fraction(port):
     tr, to = trace_rays_rim_deferred(
         torch.Generator().manual_seed(1), convert.scene(scene),
         convert.source(SOURCE_OVERNIGHT), N, capacity_shift=shift,
-        main_tracer=trace_rays_direct, device="cpu")
+        main_tracer=lossless(trace_rays_direct), device="cpu")
     assert int(jo) == int(to) == 0
     f_j = float(jr.exited_port_mask().sum()) / N
     f_t = float(tr.exited_port_mask().sum()) / N

@@ -1,7 +1,10 @@
 """Port parity for the whole trace-once flux-map slice: ``trace_rays_auto``
-+ ``fluxmap_trace_once_compact`` for both engines, the CSV of
-``sweep_detector_trace_once``, and the package's independence from JAX."""
++ ``fluxmap_trace_once_compact`` for both engines (and the simulate
+engine's large-batch path, at a small size with its thresholds lowered),
+the CSV of ``sweep_detector_trace_once``, and the package's independence
+from JAX."""
 
+import functools
 import os
 import subprocess
 import sys
@@ -17,6 +20,7 @@ from altair_tpu.core.score import exit_capacity, fluxmap_trace_once_compact as j
 from altair_tpu.core.trace_waves import trace_rays_auto as j_auto
 from altair_tpu.sweep.observer import sweep_detector_trace_once as j_sweep
 from altair_tpu_torch import convert
+from altair_tpu_torch.core import trace as trace_mod, trace_cuda, trace_waves
 from altair_tpu_torch.core.geometry import detector_position, line_hits_disk
 from altair_tpu_torch.core.score import fluxmap_trace_once_compact as t_score
 from altair_tpu_torch.sweep import sweep_detector_trace_once as t_sweep
@@ -48,29 +52,108 @@ def _hits_per_ray(res, grid):
     return (hit & mask[:, None]).sum(1).double().numpy()
 
 
+@functools.cache
+def _jax_slice(engine, scene=SCENE, n=N):
+    """JAX's trace_rays_auto + the compacting scorer: ``(result, counts,
+    score overflow)``, cached per configuration."""
+    jr = j_auto(jax.random.key(9), scene, SOURCE_OVERNIGHT, n,
+                TraceConfig(engine=engine))
+    jc, jo = j_score(jr, GRID, exit_capacity(scene, n), scene.exit_port_z)
+    return jr, jc, int(jo)
+
+
+def _assert_slice_matches_jax(engine, seed, scene=SCENE, n=N):
+    """The port's trace_rays_auto + scorer against JAX's: exit fraction
+    and map total within 4 sigma (independent streams), zero compaction
+    and rim overflow."""
+    jr, jc, jo = _jax_slice(engine, scene, n)
+    tr, rim_ovf = T.trace_rays_auto(
+        torch.Generator().manual_seed(seed), convert.scene(scene),
+        convert.source(SOURCE_OVERNIGHT), n, T.TraceConfig(engine=engine),
+        device="cpu")
+    tc, to = t_score(tr, convert.grid(GRID), exit_capacity(scene, n),
+                     scene.exit_port_z)
+    assert jo == int(to) == int(rim_ovf) == 0
+
+    f_j = float(jr.exited_port_mask().sum()) / n
+    f_t = float(tr.exited_port_mask().sum()) / n
+    assert abs(f_t - f_j) < 4 * np.sqrt(2 * f_j * (1 - f_j) / n), (f_t, f_j)
+
+    h = _hits_per_ray(tr, convert.grid(GRID))
+    assert h.sum() == int(tc.sum())            # the scorer counts the same
+    sigma_total = np.sqrt(2 * n * h.var())
+    assert abs(int(tc.sum()) - int(np.asarray(jc).sum())) < 4 * sigma_total
+
+
 @pytest.mark.parametrize("engine", ["auto", "simulate"])
 def test_slice_matches_jax(engine):
     """Exit fraction and map total within 4 sigma of JAX's (independent
     streams), zero compaction and rim overflow."""
-    cap = exit_capacity(SCENE, N)
-    jr = j_auto(jax.random.key(9), SCENE, SOURCE_OVERNIGHT, N,
-                TraceConfig(engine=engine))
-    jc, jo = j_score(jr, GRID, cap, SCENE.exit_port_z)
-    tr, rim_ovf = T.trace_rays_auto(
-        torch.Generator().manual_seed(9), convert.scene(SCENE),
-        convert.source(SOURCE_OVERNIGHT), N, T.TraceConfig(engine=engine),
-        device="cpu")
-    tc, to = t_score(tr, convert.grid(GRID), cap, SCENE.exit_port_z)
-    assert int(jo) == int(to) == int(rim_ovf) == 0
+    _assert_slice_matches_jax(engine, 9)
 
-    f_j = float(jr.exited_port_mask().sum()) / N
-    f_t = float(tr.exited_port_mask().sum()) / N
-    assert abs(f_t - f_j) < 4 * np.sqrt(2 * f_j * (1 - f_j) / N), (f_t, f_j)
 
-    h = _hits_per_ray(tr, convert.grid(GRID))
-    assert h.sum() == int(tc.sum())            # the scorer counts the same
-    sigma_total = np.sqrt(2 * N * h.var())
-    assert abs(int(tc.sum()) - int(np.asarray(jc).sum())) < 4 * sigma_total
+def test_large_batch_simulate_matches_jax(monkeypatch):
+    """The large-batch simulate path at a small size: with REFILL_MIN and
+    _WAVES_CONTINUATION_MIN lowered, the main trace runs the refill kernel
+    (its plain version here) with the tail handoff, its stragglers and the
+    rim continuation run the waves tracer, and the result matches JAX's
+    simulate engine within 4 sigma with zero overflow."""
+    calls = {"refill_plain": 0, "waves": []}
+    real_plain = trace_cuda.refill_plain
+    real_waves = trace_waves.trace_waves_from_state
+
+    def spy_plain(*a, **k):
+        calls["refill_plain"] += 1
+        return real_plain(*a, **k)
+
+    def spy_waves(gen, scene, state, *a, **k):
+        calls["waves"].append((state[0].x.shape[0], bool(scene.exact_rim)))
+        return real_waves(gen, scene, state, *a, **k)
+
+    monkeypatch.setattr(trace_cuda, "refill_plain", spy_plain)
+    monkeypatch.setattr(trace_waves, "trace_waves_from_state", spy_waves)
+    monkeypatch.setattr(trace_cuda, "REFILL_MIN", 1024)
+    monkeypatch.setattr(trace_mod, "_WAVES_CONTINUATION_MIN", 1024)
+    _assert_slice_matches_jax("simulate", 19)
+    assert calls["refill_plain"] == 1
+    # the handoff's stragglers (simple mode), then the rim continuation
+    # at N >> 4 lanes (exact rim)
+    lanes = trace_cuda.REFILL_LANES * trace_cuda._REFILL_BUDGET
+    thresh = int(trace_cuda._REFILL_HANDOFF * lanes)
+    assert calls["waves"] == [(N // lanes * thresh, False), (N >> 4, True)]
+
+
+@pytest.mark.parametrize("where", ["handoff", "rim"])
+def test_overflow_reaches_rim_total(monkeypatch, where):
+    """A waves continuation whose schedule is too tight loses rays; the
+    count reaches RimOverflow.total, from the refill handoff's straggler
+    finish (simple mode) and from the rim continuation (exact rim)."""
+    real_waves = trace_waves.trace_waves_from_state
+
+    def tight_waves(gen, scene, state, cfg=T.TraceConfig(), *a, device,
+                    **k):
+        return real_waves(gen, scene, state, cfg, wave_iters=4, shrink=64,
+                          min_wave=4, device=device)
+
+    monkeypatch.setattr(trace_waves, "trace_waves_from_state", tight_waves)
+    monkeypatch.setattr(trace_cuda, "REFILL_MIN",
+                        1024 if where == "handoff" else 1 << 30)
+    monkeypatch.setattr(trace_mod, "_WAVES_CONTINUATION_MIN", 256)
+    scene = convert.scene(SCENE.with_(exact_rim=where == "rim"))
+    _, ovf = T.trace_rays_auto(torch.Generator().manual_seed(2), scene,
+                               convert.source(SOURCE_OVERNIGHT), 8192,
+                               T.TraceConfig(engine="simulate"), device="cpu")
+    assert int(ovf) > 0
+
+
+@pytest.mark.parametrize("engine", ["auto", "simulate"])
+def test_thick_rim_matches_jax(engine):
+    """A thick rim (no deferred post-pass) runs the in-loop exact-rim
+    trace in both packages, whatever the engine: exit fraction and map
+    total within 4 sigma."""
+    scene = SCENE.with_(outer_radius=110.0)
+    assert trace_mod.rim_deferred_capacity_shift(convert.scene(scene)) is None
+    _assert_slice_matches_jax(engine, 5, scene, 8192)
 
 
 def test_csv_header_matches_jax(tmp_path):
@@ -99,15 +182,14 @@ def test_csv_header_matches_jax(tmp_path):
 
 
 def test_unported_branches_raise():
+    """Path history is not ported; engine="direct" has no closed form for
+    a non-Lambertian wall (in the JAX package too)."""
     s = convert.scene(SCENE)
     so = convert.source(SOURCE_OVERNIGHT)
     g = torch.Generator()
     for cfg, scene in ((T.TraceConfig(keep_history=4), s),
-                       (T.TraceConfig(), s.with_(outer_radius=110.0)),
                        (T.TraceConfig(engine="direct"),
-                        s.with_(surface_model=T.SurfaceModel.MIXED_BRDF)),
-                       (T.TraceConfig(engine="simulate"),
-                        s.with_(outer_radius=110.0))):
+                        s.with_(surface_model=T.SurfaceModel.MIXED_BRDF))):
         with pytest.raises(NotImplementedError):
             T.trace_rays_auto(g, scene, so, 64, cfg, device="cpu")
 
