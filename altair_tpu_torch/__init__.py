@@ -5,10 +5,12 @@ A port of ``altair_tpu`` (JAX), which stays the reference it is tested
 against.  This package imports torch and never JAX.  Ported so far: the
 trace-once flux-map path — the direct and simulate engines of
 ``trace_rays_auto``, the deferred rim post-pass, the trace-once scorer and
-``sweep.sweep_detector_trace_once`` — and the large-batch simulate path
+``sweep.sweep_detector_trace_once`` — the large-batch simulate path
 (the refill kernel's tail handoff and the wave-compaction tracer), with
 both TPU kernels rewritten as CUDA kernels (``csrc/bounce.cu``,
-``csrc/refill.cu``).
+``csrc/refill.cu``), and the retrace flux-map path: Sobol QMC draws, the
+honest and binomial retrace sweeps, replicates, the exit distribution and
+the ``fluxmap``/``distribution`` CLI (``python -m altair_tpu_torch.cli``).
 """
 
 from .config import (  # noqa: F401

@@ -130,8 +130,11 @@ class TraceConfig:
     `rng_impl` is kept for field parity with the JAX package; the port
     draws from ``torch.Generator`` streams (Philox on CUDA) and from the
     bounce kernel's own generator, and does not read it.
-    `keep_history` and `qmc` are accepted but raise ``NotImplementedError``
-    where the engines would need them: neither is ported yet.
+    `qmc`: Sobol draws in the direct sampler and in the deferred-rim
+    hybrid's closed-form finish (``core/qmc.py``): 1 digital shift, 2 Owen
+    scramble; the simulating engines ignore it, as in the JAX package.
+    `keep_history` is accepted but raises ``NotImplementedError`` where
+    the engines would need it: it is not ported yet.
     """
 
     dtype: Any = torch.float32

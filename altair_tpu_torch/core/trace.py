@@ -4,9 +4,10 @@ not ported).
 
 Random numbers: where the JAX package takes a key, the port takes a CPU
 ``torch.Generator``.  JAX's key splits become ``split``: sub-generators
-seeded from draws of the parent.  Bulk draws on a device come from
-``device_generator``, a generator on that device seeded from one draw of
-the key, so a CUDA run never copies a seed back to the host.
+seeded from draws of the parent; ``fold_in`` derives one from the key's
+state and an integer without drawing from it.  Bulk draws on a device
+come from ``device_generator``, a generator on that device seeded from one
+draw of the key, so a CUDA run never copies a seed back to the host.
 """
 
 from __future__ import annotations
@@ -82,6 +83,20 @@ def split(gen: torch.Generator, k: int) -> list[torch.Generator]:
     """``jax.random.split``: ``k`` CPU generators seeded from draws of the
     CPU generator ``gen``."""
     return [torch.Generator().manual_seed(s) for s in draw_seeds(gen, k)]
+
+
+def fold_in(gen: torch.Generator, data: int) -> torch.Generator:
+    """``jax.random.fold_in``: a CPU generator that depends only on the
+    CPU key ``gen``'s current state and the integer ``data``; ``gen``
+    itself is left as it is.  A chunked sweep keys chunk ``i`` by
+    ``fold_in(key, i)``, so a resumed run redraws exactly the streams of
+    the chunks it redoes."""
+    probe = torch.Generator()
+    probe.set_state(gen.get_state())
+    (base,) = draw_seeds(probe, 1)
+    (seed,) = np.random.SeedSequence([base, int(data)]).generate_state(
+        1, np.uint64)
+    return torch.Generator().manual_seed(int(seed) >> 2)
 
 
 def device_generator(gen: torch.Generator, device) -> torch.Generator:

@@ -43,8 +43,10 @@ KERNELS = {
 }
 
 # launches of each kernel since the last reset: a run shows it went through
-# the kernel by reading these
+# the kernel by reading these, and ``launch_sizes`` holds the ray counts
+# (n) those launches took
 launch_counts = {"bounce": 0, "refill": 0}
+launch_sizes: dict[str, set] = {"bounce": set(), "refill": set()}
 
 # lanes of one refill thread block: the handoff unit (csrc/refill.cu LANES)
 REFILL_LANES = 256
@@ -59,6 +61,7 @@ _REFILL_HANDOFF = 0.01
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+        launch_sizes[name].clear()
 
 
 _COS_N_ROUNDS = 12
@@ -416,6 +419,7 @@ def _bounce_cuda(seed, scene_vec, src_vec, n, model, max_bounces, rng):
         if err != 0:
             raise RuntimeError(f"bounce kernel launch failed: CUDA error {err}")
         launch_counts["bounce"] += 1
+        launch_sizes["bounce"].add(n)
     (status, lx, ly, lz, sx, sy, sz, dx, dy, dz, bounces) = out
     return TraceResult(status, Vec3(lx, ly, lz), Vec3(sx, sy, sz),
                        Vec3(dx, dy, dz), bounces)
@@ -616,6 +620,7 @@ def _refill_cuda(seed, scene_vec, src_vec, n, model, max_bounces, budget,
         if err != 0:
             raise RuntimeError(f"refill kernel launch failed: CUDA error {err}")
         launch_counts["refill"] += 1
+        launch_sizes["refill"].add(n)
     (status, lx, ly, lz, sx, sy, sz, dx, dy, dz, bounces) = out
     res = TraceResult(status, Vec3(lx, ly, lz), Vec3(sx, sy, sz),
                       Vec3(dx, dy, dz), bounces)

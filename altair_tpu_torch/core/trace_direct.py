@@ -78,15 +78,21 @@ def trace_direct_from_state(
     cfg: TraceConfig = TraceConfig(),
 ) -> TraceResult:
     """Closed-form completion from an arbitrary per-lane mid-flight state;
-    draws the ``[7, N]`` uniforms from ``gen`` on the state's device."""
-    if cfg.qmc:
-        raise NotImplementedError(
-            "cfg.qmc needs core/qmc.py, which is not ported to "
-            "altair_tpu_torch yet")
+    draws the ``[7, N]`` uniforms from ``gen`` on the state's device: a
+    pseudorandom block, or with ``cfg.qmc`` a Sobol block randomised by
+    words drawn from ``gen`` (``qmc=1`` digital shift, ``qmc>=2`` Owen
+    scramble; ``core/qmc.py``)."""
     device = pos0.x.device
-    dgen = device_generator(gen, device)
-    u = torch.rand((7, pos0.x.shape[0]), generator=dgen, device=device,
-                   dtype=cfg.dtype)
+    n = pos0.x.shape[0]
+    if cfg.qmc:
+        from .qmc import sobol_uniforms
+
+        u = sobol_uniforms(gen, n, 7, cfg.dtype,
+                           mode="owen" if cfg.qmc >= 2 else "shift",
+                           device=device)
+    else:
+        u = torch.rand((7, n), generator=device_generator(gen, device),
+                       device=device, dtype=cfg.dtype)
     return trace_direct_from_uniforms(u, scene, pos0, dir0, bounces0)
 
 

@@ -6,3 +6,4 @@ from .csvdialect import (  # noqa: F401
     timestamp,
     unique_filename,
 )
+from .progress import EtaTracker, debug_stamp, notify_bell, position_line  # noqa: F401

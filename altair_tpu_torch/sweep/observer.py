@@ -1,24 +1,40 @@
-"""Observer flux-map sweep — ``sweep_detector_trace_once``, the counterpart
-of the same entry point in ``altair_tpu/sweep/observer.py``
-(``sweepDetectorTraceOnce``, ``fluxAtObserverFast.C:1068-1397``): trace all
-rays once, score every grid position, write the reference CSV dialect.
-The other sweeps of the JAX module are not ported yet.
+"""Observer flux-map sweeps — the counterparts of the entry points of
+``altair_tpu/sweep/observer.py``, same knobs, CSV dialect and stdout
+protocol:
+
+* ``sweep_detector_trace_once`` <- ``sweepDetectorTraceOnce``
+  (``fluxAtObserverFast.C:1068-1397``): trace all rays once, score every
+  grid position;
+* ``fluxmap_replicates``: K independent trace-once maps, their mean and
+  standard error;
+* ``sweep_detector_retrace`` <- ``sweepDetector``
+  (``fluxAtObserverOptimize.C:433-702``): fresh rays per position, theta
+  rows in chunks with the CSV flushed per chunk (crash-resume contract),
+  or the binomial engine's one-shot map;
+* ``sweep_detector_twofold`` <- ``sweepDetectorTwofold``
+  (``fluxAtObserverFast.C:518-865``): one batch per antipodal pair.
+
+The JAX module's ``mesh=`` argument is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-import sys
 import time
 
 import numpy as np
 import torch
 
 from ..config import DetectorGrid, SphereScene, Source, TraceConfig, validate
-from ..core.score import exit_capacity, fluxmap_trace_once_compact
+from ..core.geometry import detector_position
+from ..core.score import (exit_capacity, fluxmap_retrace,
+                          fluxmap_retrace_binomial, fluxmap_trace_once_compact,
+                          grid_centers_normals, hits_single_detector)
+from ..core.trace import fold_in
 from ..core.trace_waves import trace_rays_auto
-from ..io.csvdialect import FluxmapMetadata, FluxmapWriter, fluxmap_filename
+from ..io import (EtaTracker, FluxmapMetadata, FluxmapWriter, debug_stamp,
+                  fluxmap_filename, notify_bell, read_fluxmap)
 
 
 @dataclasses.dataclass
@@ -53,12 +69,6 @@ def _metadata(scene: SphereScene, source: Source, grid: DetectorGrid,
     )
 
 
-def _debug_stamp(msg: str):
-    """``[DEBUG TIME HH:MM:SS] msg`` (``fluxAtObserverFast.C:509-515``)."""
-    sys.stdout.write(f"[DEBUG TIME {time.strftime('%H:%M:%S')}] {msg}\n")
-    sys.stdout.flush()
-
-
 def _wait(device):
     """Wait for the device's queued work, so a phase's wall time is its
     own."""
@@ -76,6 +86,7 @@ def sweep_detector_trace_once(
     seed: int = 0,
     cfg: TraceConfig = TraceConfig(),
     save_folder: str | None = "results",
+    notify: bool = False,
     verbose: bool = True,
 ) -> SweepResult:
     """Trace once on ``device``, score the whole grid, write the CSV.
@@ -90,14 +101,14 @@ def sweep_detector_trace_once(
     cap = exit_capacity(scene, n_rays)
 
     if verbose:
-        _debug_stamp("Tracing all rays once")
+        debug_stamp("Tracing all rays once")
     t0 = time.perf_counter()
     res, rim_overflow = trace_rays_auto(gen, scene, source, n_rays, cfg,
                                         device=device)
     _wait(device)
     t_trace = time.perf_counter() - t0
     if verbose:
-        _debug_stamp(f"Ray tracing completed in {t_trace:.4f} s")
+        debug_stamp(f"Ray tracing completed in {t_trace:.4f} s")
 
     t1 = time.perf_counter()
     counts, overflow = fluxmap_trace_once_compact(res, grid, cap,
@@ -111,23 +122,317 @@ def sweep_detector_trace_once(
             f"{int(rim_overflow)} rim-clipped rays unfinished — "
             "statistically impossible at the planned capacities; investigate")
     if verbose:
-        _debug_stamp(f"Detector sweep completed in {t_score:.4f} s")
+        debug_stamp(f"Detector sweep completed in {t_score:.4f} s")
         print(f"Total rays exiting port: {n_exit} out of {n_rays}")
 
     total = time.perf_counter() - t_setup0
-    path = None
-    if save_folder is not None:
-        meta = _metadata(scene, source, grid, n_rays, trace_once=True)
+    path = write_fluxmap_csv(
+        save_folder, scene, source, grid, n_rays, fm, trace_once=True,
+        footer=dict(total_time_s=total, ray_time_s=t_trace,
+                    sweep_time_s=t_score, exited=n_exit, n_rays=n_rays),
+        verbose=verbose)
+    if notify:
+        notify_bell()
+    return SweepResult(path, fm, n_exit, n_rays, t_trace, t_score, total)
+
+
+def fluxmap_replicates(
+    scene: SphereScene,
+    source: Source,
+    *,
+    device,
+    n_rays: int = 100_000,
+    grid: DetectorGrid = DetectorGrid(),
+    replicates: int = 8,
+    seed: int = 0,
+    cfg: TraceConfig = TraceConfig(),
+):
+    """``replicates`` independent trace-once maps on ``device``; returns
+    ``(mean_fraction, sem)``, each ``[n_theta, n_phi]`` numpy.
+
+    Replicate ``i`` traces from ``fold_in(key, i)``; the per-cell standard
+    error of the mean comes from the replicate spread (the reference's
+    repeat-runs workflow, ``flux_analysis.py:133-164``).  With ``cfg.qmc``
+    each replicate is its own Sobol randomisation, so the error bars
+    measure the QMC accuracy itself.  The maps stay on the device until
+    the last one is scored; any overflow raises."""
+    if replicates < 2:
+        raise ValueError("need >= 2 replicates for a standard error")
+    validate(scene, source)
+    key = torch.Generator().manual_seed(seed)
+    cap = exit_capacity(scene, n_rays)
+    counts, overflow = [], torch.zeros((), dtype=torch.int32, device=device)
+    for i in range(replicates):
+        res, rim = trace_rays_auto(fold_in(key, i), scene, source, n_rays,
+                                   cfg, device=device)
+        c, ovf = fluxmap_trace_once_compact(res, grid, cap, scene.exit_port_z)
+        counts.append(c)
+        overflow = overflow + ovf + rim.total
+    if int(overflow):
+        raise RuntimeError(f"replicates: {int(overflow)} rays unscored or "
+                           "unfinished — statistically impossible at the "
+                           "planned capacities; investigate")
+    frac = torch.stack(counts).cpu().numpy().astype(np.float64) / n_rays
+    return frac.mean(axis=0), frac.std(axis=0, ddof=1) / np.sqrt(replicates)
+
+
+def write_fluxmap_csv(save_folder, scene: SphereScene, source: Source,
+                      grid: DetectorGrid, n_rays: int, fm, *,
+                      trace_once: bool, footer: dict | None = None,
+                      verbose: bool = False) -> str | None:
+    """Write a whole ``[n_theta, n_phi]`` map ``fm`` in the reference CSV
+    dialect under ``save_folder`` (a fresh ``_1``-style name if the file
+    exists): the metadata header for ``n_rays`` rays in the trace-once or
+    retrace form, the rows, and the footer when ``footer`` gives
+    ``FluxmapWriter.write_footer``'s arguments.  Returns the path, or None
+    without a ``save_folder``."""
+    if save_folder is None:
+        return None
+    meta = _metadata(scene, source, grid, n_rays, trace_once=trace_once)
+    fname = fluxmap_filename(
+        n_rays, grid.n_theta, grid.n_phi,
+        (float(source.x), float(source.y), float(source.z)),
+        trace_once=trace_once)
+    with FluxmapWriter(os.path.join(save_folder, fname), meta) as w:
+        w.write_map(grid.theta_centers().numpy(), grid.phi_centers().numpy(),
+                    fm)
+        if footer is not None:
+            w.write_footer(**footer)
+        path = w.path
+    if verbose:
+        print(f"\nFlux map data saved to '{path}'")
+    return path
+
+
+def _retrace_footer(total_s: float, fm, n_rays_per_pos: int,
+                    n_positions: int) -> dict:
+    """The retrace dialect's footer: hits summed over the map of
+    fractions, out of ``n_rays_per_pos`` rays at every position."""
+    return dict(total_time_s=total_s,
+                total_hits=int(round(fm.sum() * n_rays_per_pos)),
+                n_total=n_rays_per_pos * n_positions)
+
+
+def sweep_detector_retrace(
+    scene: SphereScene,
+    source: Source,
+    *,
+    device,
+    n_rays_per_pos: int = 50_000,
+    grid: DetectorGrid = DetectorGrid(),
+    seed: int = 0,
+    cfg: TraceConfig = TraceConfig(),
+    save_folder: str | None = "results",
+    notify: bool = False,
+    pos_chunk: int | None = None,
+    verbose: bool = True,
+    resume_path: str | None = None,
+    engine: str = "simulate",
+    oversample: int = 128,
+) -> SweepResult:
+    """Fresh rays for every detector position on ``device``, in chunks of
+    theta rows (one row by default; ``pos_chunk`` a multiple of ``n_phi``
+    dividing the grid), each flushed to the CSV as it completes.  Chunk
+    ``ci`` traces from ``fold_in(key, ci)``, so ``resume_path`` (a partial
+    CSV of a killed run) continues exactly: its complete chunks are kept,
+    a partial chunk is redone, and the result is written under a fresh
+    ``_1``-style name.
+
+    ``engine="simulate"`` (default) traces ``n_rays_per_pos`` rays per
+    position, the exact law of ``sweepDetector``; ``engine="binomial"``
+    draws each cell around one shared ``oversample * n_rays_per_pos``-ray
+    trace (``fluxmap_retrace_binomial``): one shot, so no resume."""
+    validate(scene, source)
+    if engine == "binomial":
+        if resume_path is not None:
+            raise ValueError(
+                "engine='binomial' computes the whole map at once — there "
+                "is no chunked flush to resume; drop resume_path "
+                "(re-running is cheaper than the partial CSV)")
+        return _retrace_binomial(scene, source, n_rays_per_pos, grid, seed,
+                                 cfg, save_folder, notify, verbose,
+                                 oversample, device)
+    if engine != "simulate":
+        raise ValueError(f"unknown retrace engine {engine!r}")
+    t_all0 = time.perf_counter()
+    key = torch.Generator().manual_seed(seed)
+    P = grid.n_positions
+    if pos_chunk is None:
+        rows_per_chunk = 1
+        pos_chunk = grid.n_phi
+    else:
+        if P % pos_chunk:
+            raise ValueError("pos_chunk must divide n_theta*n_phi")
+        if pos_chunk % grid.n_phi:
+            raise ValueError("pos_chunk must be a multiple of n_phi "
+                             "(chunking is by theta rows)")
+        rows_per_chunk = pos_chunk // grid.n_phi
+    n_chunks = P // pos_chunk
+    C_all, N_all = grid_centers_normals(grid, scene.exit_port_z, device)
+    sub_shape = dataclasses.replace(grid, n_theta=rows_per_chunk)
+    th = grid.theta_centers().numpy()
+    ph = grid.phi_centers().numpy()
+    meta = _metadata(scene, source, grid, n_rays_per_pos, trace_once=False)
+
+    done_rows = 0
+    writer = None
+    fm = np.zeros((grid.n_theta, grid.n_phi))
+    if resume_path is not None and os.path.exists(resume_path):
+        _, _, frac_r, _ = read_fluxmap(resume_path)
+        done_rows = len(frac_r) // grid.n_phi
+        # align to the chunk boundary: a partial chunk's rows are redone
+        done_rows -= done_rows % rows_per_chunk
+        fm[:done_rows] = frac_r[:done_rows * grid.n_phi].reshape(
+            done_rows, grid.n_phi)
+        writer = FluxmapWriter(resume_path, meta, make_unique=True)
+        writer.write_map(th[:done_rows], ph, fm[:done_rows])
+        if verbose:
+            print(f"Resuming after {done_rows} completed theta rows")
+    if writer is None and save_folder is not None:
         fname = fluxmap_filename(
-            n_rays, grid.n_theta, grid.n_phi,
+            n_rays_per_pos, grid.n_theta, grid.n_phi,
             (float(source.x), float(source.y), float(source.z)),
-            trace_once=True)
-        with FluxmapWriter(os.path.join(save_folder, fname), meta) as w:
-            w.write_map(grid.theta_centers().numpy(),
-                        grid.phi_centers().numpy(), fm)
-            w.write_footer(total, ray_time_s=t_trace, sweep_time_s=t_score,
-                           exited=n_exit, n_rays=n_rays)
-            path = w.path
+            trace_once=False)
+        writer = FluxmapWriter(os.path.join(save_folder, fname), meta)
+
+    eta = EtaTracker(total=n_chunks)
+    eta.done = done_rows // rows_per_chunk
+    t_trace = 0.0
+    for ci in range(done_rows // rows_per_chunk, n_chunks):
+        row0 = ci * rows_per_chunk
+        sl = slice(row0 * grid.n_phi, (row0 + rows_per_chunk) * grid.n_phi)
+        t0 = time.perf_counter()
+        counts = fluxmap_retrace(
+            fold_in(key, ci), scene, source, sub_shape, n_rays_per_pos, cfg,
+            pos_chunk=min(32, pos_chunk),
+            centers_normals=(C_all[sl], N_all[sl]), device=device)
+        rows = counts.cpu().numpy().astype(np.float64) / n_rays_per_pos
+        t_trace += time.perf_counter() - t0
+        fm[row0:row0 + rows_per_chunk] = rows
+        if writer is not None:
+            writer.write_map(th[row0:row0 + rows_per_chunk], ph, rows)
+        line = eta.tick()
+        if verbose:
+            print(f"Completed theta rows {row0}-{row0 + rows_per_chunk - 1}"
+                  f" ({eta.percent:.1f}%)")
+            if line:
+                print("  " + line)
+
+    total = time.perf_counter() - t_all0
+    path = None
+    if writer is not None:
+        writer.write_footer(**_retrace_footer(total, fm, n_rays_per_pos, P))
+        path = writer.path
+        writer.close()
         if verbose:
             print(f"\nFlux map data saved to '{path}'")
-    return SweepResult(path, fm, n_exit, n_rays, t_trace, t_score, total)
+    if notify:
+        notify_bell()
+    return SweepResult(path, fm, -1, n_rays_per_pos, t_trace,
+                       total - t_trace, total)
+
+
+def _retrace_binomial(scene, source, n_rays_per_pos, grid, seed, cfg,
+                      save_folder, notify, verbose, oversample, device):
+    """The ``engine="binomial"`` body of ``sweep_detector_retrace``: the
+    whole map at once, same CSV dialect and footer."""
+    t_all0 = time.perf_counter()
+    key = torch.Generator().manual_seed(seed)
+    if verbose:
+        debug_stamp(f"Binomial retrace: sampling {oversample}x"
+                    f"{n_rays_per_pos} shared rays")
+    t0 = time.perf_counter()
+    counts = fluxmap_retrace_binomial(key, scene, source, grid,
+                                      n_rays_per_pos, cfg, oversample,
+                                      device=device)
+    fm = counts.cpu().numpy().astype(np.float64) / n_rays_per_pos
+    t_trace = time.perf_counter() - t0
+    if verbose:
+        debug_stamp(f"Binomial retrace completed in {t_trace:.4f} s")
+    total = time.perf_counter() - t_all0
+    path = write_fluxmap_csv(
+        save_folder, scene, source, grid, n_rays_per_pos, fm,
+        trace_once=False, verbose=verbose,
+        footer=_retrace_footer(total, fm, n_rays_per_pos, grid.n_positions))
+    if notify:
+        notify_bell()
+    return SweepResult(path, fm, -1, n_rays_per_pos, t_trace,
+                       total - t_trace, total)
+
+
+def sweep_detector_twofold(
+    scene: SphereScene,
+    source: Source,
+    *,
+    device,
+    n_rays_per_pair: int = 50_000,
+    grid: DetectorGrid = DetectorGrid(),
+    seed: int = 0,
+    cfg: TraceConfig = TraceConfig(),
+    save_folder: str | None = "results",
+    notify: bool = False,
+    verbose: bool = True,
+) -> SweepResult:
+    """Twofold reuse: one fresh batch per antipodal position pair (phi,
+    phi + 180), scored against both (``sweepDetectorTwofold``,
+    ``fluxAtObserverFast.C:656-714``).  Pair ``i * n_phi/2 + j`` traces
+    from ``fold_in(key, i * n_phi/2 + j)``.  Needs an even ``n_phi`` over a
+    full 360-degree phi span."""
+    if grid.n_phi % 2:
+        raise ValueError("twofold needs an even n_phi")
+    if abs((grid.phi_hi - grid.phi_lo) - 360.0) > 1e-9:
+        raise ValueError(
+            "twofold pairs detectors 180 deg apart, which maps onto the "
+            "j + n_phi/2 column only for a full 360-degree phi span")
+    if grid.n_positions > 1000:
+        import warnings
+
+        warnings.warn(
+            "twofold re-traces a fresh batch per antipodal position pair "
+            f"({grid.n_positions // 2} traces) — it exists for methodology "
+            "parity with sweepDetectorTwofold; use sweep_detector_trace_once "
+            "for production maps", stacklevel=2)
+    validate(scene, source)
+    t0_all = time.perf_counter()
+    key = torch.Generator().manual_seed(seed)
+    th_host = grid.theta_centers()
+    th = th_host.to(device)
+    ph = grid.phi_centers().to(device)
+    half = grid.n_phi // 2
+    half_w = grid.width / 2.0
+    fm = np.zeros((grid.n_theta, grid.n_phi))
+    eta = EtaTracker(total=grid.n_theta * half)
+    t_trace = 0.0
+    for i in range(grid.n_theta):
+        for j in range(half):
+            t0 = time.perf_counter()
+            res, rim = trace_rays_auto(fold_in(key, i * half + j), scene,
+                                       source, n_rays_per_pair, cfg,
+                                       device=device)
+            out = []
+            for p in (ph[j], ph[j] + 180.0):
+                c, n = detector_position(th[i], p, grid.radius,
+                                         scene.exit_port_z)
+                out.append(hits_single_detector(res, c, n, half_w,
+                                                scene.exit_port_z))
+            cnt = torch.stack(out + [rim.total]).tolist()
+            t_trace += time.perf_counter() - t0
+            if cnt[2]:
+                raise RuntimeError(f"twofold: {cnt[2]} rim-clipped rays "
+                                   "unfinished; investigate")
+            fm[i, j] = cnt[0] / n_rays_per_pair
+            fm[i, j + half] = cnt[1] / n_rays_per_pair
+            eta.tick()
+        if verbose:
+            print(f"theta={float(th_host[i]):.2f} done "
+                  f"({eta.percent:.1f}%)")
+
+    total = time.perf_counter() - t0_all
+    path = write_fluxmap_csv(
+        save_folder, scene, source, grid, n_rays_per_pair, fm,
+        trace_once=False,
+        footer=_retrace_footer(total, fm, n_rays_per_pair, grid.n_positions))
+    if notify:
+        notify_bell()
+    return SweepResult(path, fm, -1, n_rays_per_pair, t_trace,
+                       total - t_trace, total)

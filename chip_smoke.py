@@ -1,6 +1,7 @@
 #!/usr/bin/env python
 """Smoke run of altair_tpu_torch on one NVIDIA GPU (the Hopper port of the
-trace-once flux-map path and of the simulate engine's large-batch path).
+trace-once flux-map path, the simulate engine's large-batch path and the
+retrace flux-map path).
 
     python3 chip_smoke.py
 
@@ -12,8 +13,14 @@ the full 180x90 detector grid) through ``trace_rays_auto`` +
 ``sweep_detector_trace_once``, traces 4,194,304 rays through both engines
 (the simulate engine through the refill kernel, its tail handoff and the
 waves tracer), and times the refill kernel, its straggler finish and the
-simulate engine at 4M rays with and without the handoff.  Each phase
-prints one JSON line; any failed check raises, so the exit code is not 0.
+simulate engine at 4M rays with and without the handoff.  Then the
+retrace path: the Sobol generator against the CPU bit for bit, the
+binomial retrace map at bench size (50,000 rays per position, oversample
+128, the full grid) against a 4M-ray trace-once map, 16 replicate maps,
+``sweep_detector_retrace`` on 2 theta rows with both engines (the simulate
+one through the refill kernel) and a resume, and the ``fluxmap`` CLI in
+its own process.  Each phase prints one JSON line; any failed check
+raises, so the exit code is not 0.
 The last three lines are the card's name and power limit from nvidia-smi,
 the kernel table as JSON, and the ok line.  Exits non-zero without a CUDA
 device.  Imports no JAX.
@@ -302,15 +309,12 @@ def phase_refill_vs_plain(device, n=65_536, max_bounces=256, budget=4):
             "tolerance": "agree>=0.999, |dx|<=1e-3 cm, live planes equal"}
 
 
-def phase_refill_timing(device, sizes=(1 << 20, N_SCALE)):
-    """The refill kernel at the simulate engine's main-trace shape
-    (production scene without the rim, philox, 4096 cap, budget 4,
-    handoff 0.01; n = N_SCALE is the main path's own launch) against the
-    bounce kernel at the same n, its plain version once at each n
-    (per-slot agreement, live planes and time), and the stragglers'
-    finish in the waves tracer."""
-    from altair_tpu_torch import (SCENE_OPTIMIZE, SOURCE_OVERNIGHT,
-                                  SurfaceModel, TraceConfig)
+def _refill_main_shape(device):
+    """The simulate engine's main-trace shape for the refill kernel:
+    production scene without the rim, 4096 cap, the engine's budget and
+    handoff threshold.  Returns ``(scene, scene_vec, src_vec, budget,
+    thresh)``."""
+    from altair_tpu_torch import SCENE_OPTIMIZE, SOURCE_OVERNIGHT
     from altair_tpu_torch.core import trace_cuda
 
     scene = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES, exact_rim=False)
@@ -318,20 +322,60 @@ def phase_refill_timing(device, sizes=(1 << 20, N_SCALE)):
     budget = trace_cuda._REFILL_BUDGET
     thresh = int(trace_cuda._REFILL_HANDOFF * trace_cuda.REFILL_LANES
                  * budget)
+    return scene, sv, srcv, budget, thresh
+
+
+def _refill_against_plain(device, n):
+    """The refill kernel at n rays in the main-trace shape (philox,
+    Lambertian) against ``refill_plain`` on the same inputs: kernel ms
+    (CUDA events), plain ms (host clock, one call), per-slot agreement
+    and the live planes.  Fails unless >= 99.9% of slots agree within
+    1e-3 cm and the live planes are equal.  Returns ``(row, result,
+    live)`` of the kernel."""
+    from altair_tpu_torch import SurfaceModel
+    from altair_tpu_torch.core import trace_cuda
+
+    _, sv, srcv, budget, thresh = _refill_main_shape(device)
+    args = ((7, 8), sv, srcv, n, int(SurfaceModel.LAMBERTIAN), MAX_BOUNCES,
+            budget, thresh)
+    row = {"refill_ms": cuda_ms(lambda: trace_cuda.refill(*args,
+                                                          rng="philox"))}
+    res, live = trace_cuda.refill(*args, rng="philox")
+    sync(device)
+    t0 = time.perf_counter()
+    p, p_live = trace_cuda.refill_plain(*args, rng="philox")
+    sync(device)
+    row["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    agree, err = compare(res, p)
+    row.update(agree=agree, max_abs_err_cm=err,
+               live_equal=live_equal(live, p_live))
+    check(agree >= 0.999, f"refill n={n}: {agree} of slots agree")
+    check(err <= 1e-3, f"refill n={n}: positions differ by {err}")
+    check(row["live_equal"], f"refill n={n}: live planes differ")
+    return row, res, live
+
+
+def phase_refill_timing(device, sizes=(1 << 20, N_SCALE)):
+    """The refill kernel at the simulate engine's main-trace shape
+    (production scene without the rim, philox, 4096 cap, budget 4,
+    handoff 0.01; n = N_SCALE is the main path's own launch) against its
+    plain version once at each n (per-slot agreement, live planes and
+    time), without the handoff, against the bounce kernel at the same n,
+    and the stragglers' finish in the waves tracer."""
+    from altair_tpu_torch import SurfaceModel, TraceConfig
+    from altair_tpu_torch.core import trace_cuda
+
+    scene, sv, srcv, budget, thresh = _refill_main_shape(device)
     law = int(SurfaceModel.LAMBERTIAN)
     out = {"phase": "refill_timing", "budget": budget, "thresh": thresh,
            "max_bounces": MAX_BOUNCES, "rng": "philox"}
     for n in sizes:
         args = ((7, 8), sv, srcv, n, law, MAX_BOUNCES)
-        row = {
-            "refill_ms": cuda_ms(lambda: trace_cuda.refill(
-                *args, budget, thresh, rng="philox")),
-            "refill_no_handoff_ms": cuda_ms(lambda: trace_cuda.refill(
-                *args, budget, 0, rng="philox")),
-            "bounce_ms": cuda_ms(lambda: trace_cuda.bounce(
-                *args, rng="philox")),
-        }
-        res, live = trace_cuda.refill(*args, budget, thresh, rng="philox")
+        row, res, live = _refill_against_plain(device, n)
+        row["refill_no_handoff_ms"] = cuda_ms(lambda: trace_cuda.refill(
+            *args, budget, 0, rng="philox"))
+        row["bounce_ms"] = cuda_ms(lambda: trace_cuda.bounce(
+            *args, rng="philox"))
         row["stragglers"] = int((res.status == 0).sum())
         row["continuation_width"] = (n // (trace_cuda.REFILL_LANES * budget)
                                      * thresh)
@@ -351,18 +395,6 @@ def phase_refill_timing(device, sizes=(1 << 20, N_SCALE)):
         check(not bool((fin.status == 0).any()),
               f"refill n={n}: slots left RUNNING after the continuation")
         row["mean_bounces"] = float(fin.n_bounces.float().mean())
-        sync(device)
-        t0 = time.perf_counter()
-        p, p_live = trace_cuda.refill_plain(*args, budget, thresh,
-                                            rng="philox")
-        sync(device)
-        row["plain_ms"] = (time.perf_counter() - t0) * 1e3
-        agree, err = compare(res, p)
-        row.update(agree=agree, max_abs_err_cm=err,
-                   live_equal=live_equal(live, p_live))
-        check(agree >= 0.999, f"refill n={n}: {agree} of slots agree")
-        check(err <= 1e-3, f"refill n={n}: positions differ by {err}")
-        check(row["live_equal"], f"refill n={n}: live planes differ")
         out[str(n)] = row
     return out
 
@@ -444,6 +476,294 @@ def phase_kernel_timing(device, n=N_HEADLINE, kernel_reps=5, plain_reps=2):
             "max_bounces_seen": int(k.n_bounces.max())}
 
 
+def phase_qmc_bits(device, n=1 << 22, dim=7, seed=0):
+    """The Sobol generator on the card against the same call on the CPU,
+    bit for bit, and both randomisations from the same words; device
+    times (CUDA events, mean of 5 after a warm call)."""
+    from altair_tpu_torch.core import qmc
+
+    bits = qmc.sobol_bits(n, dim, device)
+    check(torch.equal(bits.cpu(), qmc.sobol_bits(n, dim)),
+          "qmc: sobol_bits on the card differs from the CPU")
+    words = torch.randint(0, 1 << 32, (dim, 1), dtype=torch.int64,
+                          generator=torch.Generator().manual_seed(seed))
+    out = {"phase": "qmc_bits", "n": n, "dim": dim, "sobol_bits_ms":
+           cuda_ms(lambda: qmc.sobol_bits(n, dim, device))}
+    for mode in ("shift", "owen"):
+        w = words.to(device)
+        u = qmc.sobol_uniforms_from_words(w, n, dim, mode=mode)
+        same = torch.equal(u.cpu(), qmc.sobol_uniforms_from_words(
+            words, n, dim, mode=mode))
+        check(same, f"qmc: {mode} uniforms on the card differ from the CPU")
+        out[mode] = {"equal": same, "min": float(u.min()),
+                     "max": float(u.max()),
+                     "ms": cuda_ms(lambda: qmc.sobol_uniforms_from_words(
+                         w, n, dim, mode=mode))}
+    return out
+
+
+def phase_retrace_binomial(device, n_per_pos=50_000, oversample=128,
+                           repeats=3, seed=500, n_ref=N_SCALE):
+    """The bench workload ``retrace_binomial_value`` (``bench.py:211-224``)
+    through ``fluxmap_retrace_binomial``: one warm run, then the best of
+    ``repeats``, host clock to the map's readback, each timed run
+    splitting itself into its stages (``timings``: the shared trace with
+    its rim post-pass, the scoring chunks, the draw; a device sync after
+    each); the main direct trace (Sobol block, no rim) once on its own,
+    so the rim post-pass's share is a difference of two runs; and the
+    map's total fraction against a 4M-ray trace-once map's within 4
+    sigma.  The call raises on a rim overflow; its compaction overflow
+    (``stats``) must be 0."""
+    from altair_tpu_torch import (SCENE_OPTIMIZE, SOURCE_OVERNIGHT,
+                                  DetectorGrid, TraceConfig, trace_rays_auto)
+    from altair_tpu_torch.core import score
+    from altair_tpu_torch.core.trace_cuda import _slice
+    from altair_tpu_torch.core.trace_direct import trace_rays_direct
+
+    grid = DetectorGrid()
+    scene = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES)
+    M = oversample * n_per_pos
+    cap = score.exit_capacity(scene, M)
+
+    def run(i, stats=None):
+        return score.fluxmap_retrace_binomial(
+            torch.Generator().manual_seed(seed + i), scene, SOURCE_OVERNIGHT,
+            grid, n_per_pos, oversample=oversample, device=device,
+            stats=stats).cpu()
+
+    run(0)
+    times, stages = [], []
+    for i in range(1, repeats + 1):
+        stages.append({})
+        sync(device)
+        t0 = time.perf_counter()
+        cells = run(i, stages[-1])
+        times.append(time.perf_counter() - t0)
+    best = min(range(repeats), key=times.__getitem__)
+    ovf = [st.pop("compaction_overflow") for st in stages]
+    check(not any(ovf), f"binomial: compaction overflow {ovf}")
+    check(cells.dtype == torch.int32 and cells.shape == (180, 90),
+          f"binomial: map {cells.dtype} {tuple(cells.shape)}")
+    check(int(cells.min()) >= 0 and int(cells.max()) <= n_per_pos,
+          "binomial: a cell outside [0, n_per_pos]")
+
+    sync(device)
+    t0 = time.perf_counter()
+    trace_rays_direct(torch.Generator().manual_seed(seed), scene.with_(
+        exact_rim=False), SOURCE_OVERNIGHT, M, TraceConfig(qmc=1),
+        device=device)
+    sync(device)
+    main_alone = time.perf_counter() - t0
+    split_s = dict(stages[best], main_trace_alone_s=main_alone,
+                   rim_post_pass_by_difference_s=(stages[best]["trace_s"]
+                                                  - main_alone))
+
+    # the reference: a trace-once map of n_ref rays; per-ray hit variance
+    # from its first 200k rays
+    ref, rim_ref = trace_rays_auto(torch.Generator().manual_seed(seed + 99),
+                                   scene, SOURCE_OVERNIGHT, n_ref,
+                                   TraceConfig(), device=device)
+    ref_counts, ref_ovf = score.fluxmap_trace_once_compact(
+        ref, grid, score.exit_capacity(scene, n_ref), scene.exit_port_z)
+    check(int(ref_ovf) == 0 and int(rim_ref) == 0, "reference overflow")
+    _, sig200k = _hits_per_ray(_slice(ref, 200_000), grid, scene.exit_port_z)
+    var_h = sig200k ** 2 / 200_000
+    frac_ref = float(ref_counts.double().sum()) / n_ref
+    frac = float(cells.double().sum()) / n_per_pos
+    pi = cells.double() / n_per_pos
+    sigma = math.sqrt(float((pi * (1 - pi)).sum()) / n_per_pos
+                      + var_h / M + var_h / n_ref)
+    check(abs(frac - frac_ref) < 4 * sigma,
+          f"binomial: total fraction {frac} vs trace-once {frac_ref} "
+          f"(sigma {sigma})")
+    return {"phase": "retrace_binomial", "n_per_pos": n_per_pos,
+            "oversample": oversample, "shared_rays": M, "capacity": cap,
+            "pos_chunk": score.binomial_pos_chunk(cap),
+            "score_chunks": -(-grid.n_positions
+                              // score.binomial_pos_chunk(cap)),
+            "grid": [180, 90], "best_s": min(times), "times_s": times,
+            "best_run_stages_s": split_s, "stages_s": stages,
+            "total_fraction": frac,
+            "trace_once_fraction": frac_ref, "sigma": sigma,
+            "max_cell": int(cells.max()), "compaction_overflow": ovf}, cells
+
+
+def phase_replicates(device, K=16, n=N_HEADLINE, seed=700):
+    """``fluxmap_replicates``: K trace-once maps of n rays (after a warm
+    call of 2), the time per map (the port's ``amortized_per_map_value``)
+    and the pooled bright-cell standard error, held to within a factor 2
+    of the binomial one."""
+    from altair_tpu_torch import SCENE_OPTIMIZE, SOURCE_OVERNIGHT
+    from altair_tpu_torch.sweep import fluxmap_replicates
+
+    scene = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES)
+    fluxmap_replicates(scene, SOURCE_OVERNIGHT, device=device, n_rays=n,
+                       replicates=2, seed=seed)
+    sync(device)
+    t0 = time.perf_counter()
+    mean, sem = fluxmap_replicates(scene, SOURCE_OVERNIGHT, device=device,
+                                   n_rays=n, replicates=K, seed=seed + 1)
+    wall = time.perf_counter() - t0
+    bright = mean > mean.max() * 0.1
+    pooled = float(sem[bright].mean())
+    binom = float((mean[bright] * (1 - mean[bright]) / (n * K)).mean() ** 0.5)
+    check(mean.shape == (180, 90) and bool((sem >= 0).all()),
+          "replicates: map shape or sem")
+    check(0.5 * binom < pooled < 2.0 * binom,
+          f"replicates: pooled bright-cell sem {pooled} vs binomial {binom}")
+    return {"phase": "replicates", "K": K, "n_rays": n, "wall_s": wall,
+            "amortized_per_map_value": wall / K,
+            "pooled_bright_sem": pooled, "binomial_sem": binom,
+            "bright_cells": int(bright.sum()),
+            "map_total_fraction": float(mean.sum())}
+
+
+def phase_retrace_rows(device, binom_cells, save_folder, n_per_pos=50_000,
+                       seed=900):
+    """``sweep_detector_retrace`` on the first 2 theta rows of the full
+    180x90 grid (depth cut from 180 rows), 50,000 rays per position, with
+    the direct engine and with ``engine="simulate"`` (1.6M-ray chunks: the
+    refill kernel; its launches and their sizes counted from 0 over that
+    run, then the kernel held against its plain version at each size),
+    both writing the CSV; the simulate sweep then resumes from a one-row
+    partial CSV
+    and must redo the second row exactly.  Rows against each other and
+    against the binomial map within 5 sigma per cell.  Then one chunk's
+    trace (32 positions x 50,000 rays) per engine, split into the main
+    trace and the rim post-pass, each stage ended by a device sync."""
+    import numpy as np
+
+    from altair_tpu_torch import (SCENE_OPTIMIZE, SOURCE_OVERNIGHT,
+                                  DetectorGrid, TraceConfig)
+    from altair_tpu_torch.core import trace_cuda
+    from altair_tpu_torch.io import read_fluxmap
+    from altair_tpu_torch.sweep import sweep_detector_retrace
+
+    scene = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES)
+    grid = DetectorGrid(n_theta=2, theta_hi=1.0)     # rows 0-1 of 180x90
+    kw = dict(device=device, n_rays_per_pos=n_per_pos, grid=grid,
+              verbose=False)
+    out = {"phase": "retrace_rows", "rows": 2, "n_per_pos": n_per_pos}
+    maps = {}
+    for engine in ("auto", "simulate"):
+        folder = os.path.join(save_folder, engine)
+        trace_cuda.reset_launch_counts()
+        r = sweep_detector_retrace(scene, SOURCE_OVERNIGHT, seed=seed,
+                                   cfg=TraceConfig(engine=engine),
+                                   save_folder=folder, **kw)
+        launches = dict(trace_cuda.launch_counts)
+        sizes = sorted(trace_cuda.launch_sizes["refill"])
+        _, _, frac, _ = read_fluxmap(r.path)
+        check(len(frac) == 180, f"retrace {engine}: {len(frac)} CSV rows")
+        maps[engine] = r.fluxmap
+        out[engine] = {"csv": r.path, "trace_s": r.trace_time_s,
+                       "per_row_s": r.trace_time_s / 2,
+                       "total_s": r.total_time_s, "launches": launches,
+                       "refill_sizes": sizes}
+    check(out["simulate"]["launches"]["refill"] > 0,
+          "retrace_rows: the simulate engine never launched the refill "
+          "kernel")
+    # the refill kernel against its plain version at each size this sweep
+    # launched it with (after the counts were read)
+    out["simulate"]["refill_vs_plain"] = {
+        str(n): _refill_against_plain(device, n)[0]
+        for n in out["simulate"]["refill_sizes"]}
+
+    # resume the simulate sweep from its own first row
+    with open(out["simulate"]["csv"]) as fh:
+        lines = fh.read().splitlines()
+    head = lines.index("theta,phi,fraction") + 1
+    partial = os.path.join(save_folder, "partial.csv")
+    with open(partial, "w") as fh:
+        fh.write("\n".join(lines[:head + 90]) + "\n")
+    t0 = time.perf_counter()
+    rr = sweep_detector_retrace(scene, SOURCE_OVERNIGHT, seed=seed,
+                                cfg=TraceConfig(engine="simulate"),
+                                save_folder=None, resume_path=partial, **kw)
+    resume_s = time.perf_counter() - t0
+    _, _, frac_r, _ = read_fluxmap(rr.path)
+    check(len(frac_r) == 180, f"resumed CSV: {len(frac_r)} rows")
+    out["resume"] = {"csv": rr.path, "rows": len(frac_r), "wall_s": resume_s,
+                     "redone_row_equals_full_run": bool(
+                         np.array_equal(rr.fluxmap[1], maps["simulate"][1]))}
+    check(out["resume"]["redone_row_equals_full_run"],
+          "resume: the redone row differs from the full run's")
+
+    # per cell: the difference of two independent draws of mean pi, pi
+    # pooled from the pair (floored at one hit); the binomial cell's
+    # variance is 1 + 1/oversample times the retrace cell's
+    binom = binom_cells[:2].double().numpy() / n_per_pos
+    worst = {}
+    for name, a, b, excess in (
+            ("direct_vs_simulate", maps["auto"], maps["simulate"], 0.0),
+            ("direct_vs_binomial", maps["auto"], binom, 1 / 128),
+            ("simulate_vs_binomial", maps["simulate"], binom, 1 / 128)):
+        pi = np.maximum((a + b) / 2, 1.0 / n_per_pos)
+        z = np.abs(a - b) / np.sqrt((2 + excess) * pi * (1 - pi) / n_per_pos)
+        worst[name] = float(z.max())
+        check(z.max() < 5, f"retrace_rows {name}: {z.max()} sigma")
+    out["max_sigma"] = worst
+
+    from altair_tpu_torch import trace_rays_auto
+    from altair_tpu_torch.core.trace_direct import trace_rays_direct
+
+    n_chunk = 32 * n_per_pos
+    simple = scene.with_(exact_rim=False)
+    mains = {"auto": trace_rays_direct,
+             "simulate": lambda *a, **k: trace_cuda._kernel_padded(*a, **k)[0]}
+    for engine, main in mains.items():
+        cfg = TraceConfig(engine=engine)
+        stages = {}
+        for name, fn in (
+                ("chunk_trace_s", lambda: trace_rays_auto(
+                    torch.Generator().manual_seed(seed + 7), scene,
+                    SOURCE_OVERNIGHT, n_chunk, cfg, device=device)),
+                ("main_trace_s", lambda: main(
+                    torch.Generator().manual_seed(seed + 8), simple,
+                    SOURCE_OVERNIGHT, n_chunk, cfg, device=device))):
+            sync(device)
+            t0 = time.perf_counter()
+            fn()
+            sync(device)
+            stages[name] = time.perf_counter() - t0
+        stages["rim_post_pass_s"] = (stages["chunk_trace_s"]
+                                     - stages["main_trace_s"])
+        out[engine]["one_chunk"] = stages
+    return out
+
+
+def phase_cli(device, out_dir):
+    """The CLI as a user runs it: ``python -m altair_tpu_torch.cli fluxmap
+    --method retrace --retrace-engine binomial --rays 5000 --oversample
+    16`` on the card, in its own process; it must exit 0 and write the
+    full map's CSV."""
+    import shutil
+
+    from altair_tpu_torch.io import read_fluxmap
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "altair_tpu_torch.cli", "fluxmap",
+           "--method", "retrace", "--retrace-engine", "binomial",
+           "--rays", "5000", "--oversample", "16",
+           "--device", str(device), "--out", out_dir]
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                       text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(p.returncode == 0,
+          f"cli exited {p.returncode}: {p.stderr[-2000:]}")
+    csvs = [f for f in os.listdir(out_dir) if f.endswith(".csv")]
+    check(len(csvs) == 1, f"cli wrote {csvs}")
+    _, _, frac, meta = read_fluxmap(os.path.join(out_dir, csvs[0]))
+    check(len(frac) == 16_200, f"cli CSV rows {len(frac)}")
+    return {"phase": "cli", "cmd": " ".join(cmd[1:]), "wall_s": wall,
+            "csv": csvs[0], "rows": len(frac),
+            "total_hits": meta.get("Total ray hits"),
+            "stdout_tail": p.stdout.strip().splitlines()[-1:]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -489,8 +809,11 @@ def main() -> int:
     sim = phase_headline(device, "simulate", seed=args.seed + 1000)
     launches = trace_cuda.launch_counts["bounce"]
     sim["bounce_launches"] = launches
+    sim["bounce_sizes"] = sorted(trace_cuda.launch_sizes["bounce"])
     emit(sim)
     check(launches > 0, "the simulate engine never launched the kernel")
+    check(N_HEADLINE in sim["bounce_sizes"],
+          "the bounce kernel's timed size is not one the main path launched")
     sigma = math.hypot(direct["map_total_sigma"], sim["map_total_sigma"])
     check(abs(direct["map_total"] - sim["map_total"]) < 4 * sigma,
           f"map totals {direct['map_total']} vs {sim['map_total']} "
@@ -506,11 +829,25 @@ def main() -> int:
     emit(refill_timing)
     emit(phase_simulate_e2e(device))
 
+    # the retrace flux-map path: Sobol draws, the binomial map at bench
+    # size, replicates, retrace rows (the simulate engine's run counts its
+    # refill launches from 0 inside the phase) and the CLI
+    emit(phase_qmc_bits(device, seed=args.seed))
+    binom, binom_cells = phase_retrace_binomial(device)
+    emit(binom)
+    emit(phase_replicates(device))
+    rows_out = phase_retrace_rows(device, binom_cells,
+                                  os.path.join(save, "retrace_rows"))
+    emit(rows_out)
+    emit(phase_cli(device, os.path.join(save, "cli")))
+
     # the refill row's times are at the main path's shape (N_SCALE rays)
     r_main = refill_timing[str(N_SCALE)]
     refill_err = max([refill_hash["max_abs_err_cm"]]
                      + [r["max_abs_err_cm"] for r in refill_timing.values()
-                        if isinstance(r, dict)])
+                        if isinstance(r, dict)]
+                     + [r["max_abs_err_cm"] for r in
+                        rows_out["simulate"]["refill_vs_plain"].values()])
     rows = {
         "bounce": (launches, timing["max_abs_err_cm"], timing["kernel_ms"],
                    timing["plain_ms"]),

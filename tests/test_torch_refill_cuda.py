@@ -65,6 +65,7 @@ def test_kernel_matches_plain(cuda, model, rng, handoff):
     k, k_live = trace_cuda.refill(*args, rng=rng)
     torch.cuda.synchronize()
     assert trace_cuda.launch_counts["refill"] == before + 1
+    assert n in trace_cuda.launch_sizes["refill"]
     p, p_live = trace_cuda.refill_plain(*args, rng=rng)
     _assert_matches_plain(k, k_live, p, p_live)
     if thresh:

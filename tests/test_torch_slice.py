@@ -196,7 +196,9 @@ def test_unported_branches_raise():
 
 def test_package_imports_no_jax():
     code = ("import sys, altair_tpu_torch, altair_tpu_torch.sweep, "
-            "altair_tpu_torch.convert, altair_tpu_torch.core.trace_cuda; "
+            "altair_tpu_torch.convert, altair_tpu_torch.core.trace_cuda, "
+            "altair_tpu_torch.core.qmc, altair_tpu_torch.core.score, "
+            "altair_tpu_torch.cli; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'altair_tpu.'))  or m == 'altair_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
