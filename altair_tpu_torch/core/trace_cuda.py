@@ -48,8 +48,11 @@ KERNELS = {
 launch_counts = {"bounce": 0, "refill": 0}
 launch_sizes: dict[str, set] = {"bounce": set(), "refill": set()}
 
-# lanes of one refill thread block: the handoff unit (csrc/refill.cu LANES)
-REFILL_LANES = 256
+# lanes of one refill unit: a warp's pool and the handoff unit
+# (csrc/refill.cu LANES)
+REFILL_LANES = 128
+# threads that share one unit's pool in the kernel: a warp
+REFILL_THREADS = 32
 # batches at least this big run the refill kernel (the JAX package's
 # constants, trace_pallas.py:933-942; module constants so a test can lower
 # them)
@@ -177,21 +180,23 @@ def _unit(bits):
     return (bits >> 8).to(torch.float32) * _INV24
 
 
-def _hash_draws(lane_h, it: int, n_draws: int):
-    """``_sw_uniform`` draws of iteration ``it``, bit for bit."""
+def _hash_draws(lane_h, it, n_draws: int):
+    """``_sw_uniform`` draws of iteration ``it`` (an int, or an int64
+    tensor of one counter per lane), bit for bit."""
     c = it * n_draws
     return [_unit(_fmix32((lane_h + (((c + i) * _GOLDEN) & _M32)) & _M32))
             for i in range(n_draws)]
 
 
-def _philox_draws(lane, it: int, n_draws: int, seed0: int, seed1: int):
-    """The kernel's philox draws of iteration ``it``: counter (ray index
-    low word, high word, it, draw group)."""
+def _philox_draws(lane, it, n_draws: int, seed0: int, seed1: int):
+    """The kernel's philox draws of iteration ``it`` (an int, or an int64
+    tensor of one counter per lane): counter (ray index low word, high
+    word, it, draw group)."""
     lo = lane & _M32
     hi = lane >> 32
     out = []
     for g in range(-(-n_draws // 4)):
-        words = philox4x32_10(lo, hi, torch.full_like(lane, it),
+        words = philox4x32_10(lo, hi, torch.zeros_like(lane) + it,
                               torch.full_like(lane, g), seed0, seed1)
         out += [_unit(w) for w in words]
     return out[:n_draws]
@@ -460,119 +465,203 @@ class LiveState(NamedTuple):
     bounces: torch.Tensor   # [n / budget] int32: that ray's bounces so far
 
 
-def _check_refill_args(n, budget, thresh, lane_block):
-    if budget < 1 or thresh < 0 or lane_block < 1:
-        raise ValueError("budget and lane_block must be >= 1, thresh >= 0")
+def _check_refill_args(n, budget, thresh, lane_block, threads_per_unit=1):
+    if budget < 1 or thresh < 0 or lane_block < 1 or threads_per_unit < 1:
+        raise ValueError("budget, lane_block and threads_per_unit must be "
+                         ">= 1, thresh >= 0")
     if n % (lane_block * budget):
         raise ValueError(f"n must be a multiple of lane_block * budget = "
                          f"{lane_block * budget}, got {n}")
 
 
+class _Physics(NamedTuple):
+    """What a refill bounce step reads: the law, the stream, the seed
+    words, the caps and the scene's and source's scalars (0-d tensors)."""
+
+    model: SurfaceModel
+    rng: str
+    seed0: int
+    seed1: int
+    max_bounces: int
+    budget: int
+    radius: torch.Tensor
+    cos_cap: torch.Tensor
+    reflectance: torch.Tensor
+    m0: torch.Tensor
+    m1: torch.Tensor
+    src: tuple           # x, y, z, dx, dy, dz of the source ray
+
+
+def _physics(seed, scene_vec, src_vec, model, max_bounces, budget,
+             rng) -> _Physics:
+    return _Physics(SurfaceModel(model), rng, int(seed[0]) & _M32,
+                    int(seed[1]) & _M32, int(max_bounces), int(budget),
+                    scene_vec[0], scene_vec[1], scene_vec[2], scene_vec[6],
+                    scene_vec[7], tuple(src_vec[i] for i in range(6)))
+
+
+def _refill_step(ph: _Physics, lane, lane_h, k, active, px, py, pz, dx, dy,
+                 dz, rbounces):
+    """One bounce of every ``active`` lane, its draws keyed by (``lane``,
+    ``k``).  Returns ``(done, status, q, nbounces, state)``: the lanes
+    whose ray finished, the status, segment start and bounce count of
+    their slot (the slot's direction is the ``dx, dy, dz`` passed in), and
+    every lane's next ``(px, py, pz, dx, dy, dz, rbounces)`` (a finished
+    ray respawns at the source)."""
+    b = px * dx + py * dy + pz * dz
+    c = px * px + py * py + pz * pz - ph.radius * ph.radius
+    disc = torch.clamp(b * b - c, min=0.0)
+    t = torch.clamp(-b + torch.sqrt(disc), min=0.0)
+    qx = px + dx * t
+    qy = py + dy * t
+    qz = pz + dz * t
+    rn = ph.radius * torch.rsqrt(qx * qx + qy * qy + qz * qz)
+    qx, qy, qz = qx * rn, qy * rn, qz * rn
+    escaped = qz < ph.cos_cap
+
+    nd = N_DRAWS[ph.model]
+    if ph.rng == "hash":
+        u = _hash_draws(lane_h, k, nd)
+    else:
+        u = _philox_draws(lane, k, nd, ph.seed0, ph.seed1)
+    survive = u[0] < ph.reflectance
+    inv_r = 1.0 / ph.radius
+    ndx, ndy, ndz = _scatter_dir(ph.model, ph.m0, ph.m1, u, -qx * inv_r,
+                                 -qy * inv_r, -qz * inv_r, dx, dy, dz)
+
+    done_exit = active & escaped
+    done_abs = active & ~escaped & ~survive
+    done_susp = (active & ~escaped & survive
+                 & (rbounces + 1 >= ph.max_bounces))
+    done = done_exit | done_abs | done_susp
+    status = _i32(torch.where(done_exit, EXITED,
+                              torch.where(done_abs, ABSORBED, SUSPENDED)))
+    nbounces = torch.where(done_exit, rbounces, rbounces + 1)
+
+    cont = active & ~done   # a wall bounce: the ray goes on
+    sx0, sy0, sz0, dx0, dy0, dz0 = ph.src
+    state = (torch.where(done, sx0, torch.where(cont, qx, px)),
+             torch.where(done, sy0, torch.where(cont, qy, py)),
+             torch.where(done, sz0, torch.where(cont, qz, pz)),
+             torch.where(done, dx0, torch.where(cont, ndx, dx)),
+             torch.where(done, dy0, torch.where(cont, ndy, dy)),
+             torch.where(done, dz0, torch.where(cont, ndz, dz)),
+             torch.where(done, 0, torch.where(cont, rbounces + 1, rbounces)))
+    return done, status, (qx, qy, qz), nbounces, state
+
+
 def refill_plain(seed, scene_vec, src_vec, n: int, model, max_bounces: int,
                  budget: int, thresh: int = 0, rng: str = "philox",
-                 lane_block: int = REFILL_LANES
+                 lane_block: int = REFILL_LANES,
+                 threads_per_unit: int = REFILL_THREADS
                  ) -> tuple[TraceResult, LiveState | None]:
-    """The refill kernel's computation in plain tensor ops, on the device
-    of ``scene_vec``.  ``n / budget`` lanes in blocks of ``lane_block``;
-    each block runs the loop until its handoff check (every
-    ``INNER_ITERS`` iterations) finds ``it >= max_bounces * budget`` or at
-    most ``thresh`` of its rays left, and then stays as it is.  Slot ``j``
-    of lane ``l`` in block ``b`` is flat index ``b*budget*lane_block +
+    """The refill kernel's loop in plain tensor ops, on the device of
+    ``scene_vec``: ``n / budget`` lanes in units of ``lane_block``, each
+    unit's pool shared by ``threads_per_unit`` threads.  32 (a warp) is
+    the kernel's schedule; ``== lane_block`` is the lane-static one of the
+    Pallas kernel and of this port before the warp pools.  Slot ``j`` of
+    pool lane ``l`` in unit ``u`` is flat index ``u*budget*lane_block +
     j*lane_block + l``; slots never reached read RUNNING with zero fields.
-    ``lane_block=16384`` is the Pallas kernel's layout and block."""
+    ``lane_block=16384`` is the Pallas kernel's layout and block.
+
+    Step by step over ``[units, threads]``, as ``csrc/refill.cu``: every
+    ``INNER_ITERS`` steps a unit sums its rays left (``budget - ray_idx``
+    over its threads' lanes, ``budget`` for each lane not yet taken) and
+    leaves once that is at most ``thresh``, or at a step cap that binds
+    only at ``max_bounces == 0``; at every step the threads holding no
+    lane take the pool's next ones in thread order (the kernel's ballot
+    and prefix count), then each thread holding a lane makes one bounce,
+    its draws keyed by (lane, the lane's own step count).  Units that
+    left are dropped from the tensors at each check."""
     _check_args(seed, scene_vec, src_vec, n, model, max_bounces, rng)
-    _check_refill_args(n, budget, thresh, lane_block)
-    model = SurfaceModel(model)
+    _check_refill_args(n, budget, thresh, lane_block, threads_per_unit)
     dev = scene_vec.device
-    radius, cos_cap, reflectance, world_half = (scene_vec[0], scene_vec[1],
-                                                scene_vec[2], scene_vec[3])
-    m0, m1 = scene_vec[6], scene_vec[7]
-    inv_r = 1.0 / radius
-    nd = N_DRAWS[model]
-    seed0, seed1 = int(seed[0]) & _M32, int(seed[1]) & _M32
-    n_lanes = n // budget
-    n_blocks = n_lanes // lane_block
-
-    lane = torch.arange(n_lanes, dtype=torch.int64, device=dev)
-    lane_h = _fmix32((lane & _M32) ^ (seed0 ^ seed1))
-    blk = lane // lane_block
-    base = blk * (budget * lane_block) + (lane - blk * lane_block)
-    sx0, sy0, sz0, dx0, dy0, dz0 = (src_vec[i] for i in range(6))
-    zt = torch.zeros((n_lanes,), dtype=torch.float32, device=dev)
-    px, py, pz = sx0 + zt, sy0 + zt, sz0 + zt
-    dx, dy, dz = dx0 + zt, dy0 + zt, dz0 + zt
-    ray_idx = torch.zeros((n_lanes,), dtype=torch.int32, device=dev)
-    rbounces = torch.zeros((n_lanes,), dtype=torch.int32, device=dev)
-    # the slot planes, with one sink row at index n for lanes not writing
-    status_o, bounces_o = (torch.zeros((n + 1,), dtype=torch.int32,
-                                       device=dev) for _ in range(2))
-    segx, segy, segz, dirx, diry, dirz = (
-        torch.zeros((n + 1,), dtype=torch.float32, device=dev)
-        for _ in range(6))
-
-    block_live = torch.ones((n_blocks,), dtype=torch.bool, device=dev)
-    it = 0
-    while it < max_bounces * budget:
-        remaining = (budget - ray_idx).reshape(n_blocks, lane_block).sum(1)
-        block_live = block_live & (remaining > thresh)
-        if not bool(block_live.any()):
-            break
-        lane_live = block_live.repeat_interleave(lane_block)
+    ph = _physics(seed, scene_vec, src_vec, model, max_bounces, budget, rng)
+    lanes, threads = lane_block, min(threads_per_unit, lane_block)
+    units = n // (budget * lanes)
+    cap = (lanes - threads + 1) * budget * max_bounces
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    # per unit in the loop: its id and the pool lanes handed out; per
+    # thread (unit-major): its lane's pool index and step count, the slot
+    # of the ray in flight (budget: no lane) and that ray's state
+    uid = torch.arange(units, dtype=torch.int64, device=dev)
+    nxt = torch.zeros_like(uid)
+    p = torch.zeros(units * threads, dtype=torch.int64, device=dev)
+    k = torch.zeros_like(p)
+    ray_idx = torch.full((units * threads,), budget, **i32)
+    rb = torch.zeros_like(ray_idx)
+    px, py, pz, dx, dy, dz = (s + torch.zeros(units * threads, **f32)
+                              for s in ph.src)
+    planes = ([torch.zeros(n + 1, **i32)]
+              + [torch.zeros(n + 1, **f32) for _ in range(6)]
+              + [torch.zeros(n + 1, **i32)])
+    live = None
+    if thresh > 0:      # every lane the source ray until its unit leaves
+        live = ([s + torch.zeros(n // budget, **f32) for s in ph.src]
+                + [torch.zeros(n // budget, **i32) for _ in range(2)])
+    pool = torch.arange(lanes, dtype=torch.int64, device=dev)
+    step = 0
+    while uid.numel():
+        m = uid.shape[0]
+        rem = ((budget - ray_idx).view(m, threads).sum(1)
+               + budget * (lanes - nxt))
+        leave = (rem <= thresh) | (step >= cap)
+        if bool(leave.any()):
+            tl = leave.repeat_interleave(threads)
+            if live is not None:
+                # taken lanes are spent unless a thread holds them
+                lu = uid[leave]
+                live[6][(lu[:, None] * lanes + pool).view(-1)] = _i32(
+                    torch.where(pool < nxt[leave][:, None], budget, 0)
+                ).view(-1)
+                held = tl & (ray_idx < budget)
+                gl = (uid.repeat_interleave(threads) * lanes + p)[held]
+                for plane, v in zip(live, (px, py, pz, dx, dy, dz, ray_idx,
+                                           rb)):
+                    plane[gl] = v[held]
+            uid, nxt = uid[~leave], nxt[~leave]
+            p, k, ray_idx, rb, px, py, pz, dx, dy, dz = (
+                t[~tl] for t in (p, k, ray_idx, rb, px, py, pz, dx, dy, dz))
+            m = uid.shape[0]
+            if not m:
+                break
+        unit = uid.repeat_interleave(threads)
         for _ in range(INNER_ITERS):
-            active = lane_live & (ray_idx < budget)
-            b = px * dx + py * dy + pz * dz
-            c = px * px + py * py + pz * pz - radius * radius
-            disc = torch.clamp(b * b - c, min=0.0)
-            t = torch.clamp(-b + torch.sqrt(disc), min=0.0)
-            qx = px + dx * t
-            qy = py + dy * t
-            qz = pz + dz * t
-            rn = radius * torch.rsqrt(qx * qx + qy * qy + qz * qz)
-            qx, qy, qz = qx * rn, qy * rn, qz * rn
-            escaped = qz < cos_cap
-
-            if rng == "hash":
-                u = _hash_draws(lane_h, it, nd)
-            else:
-                u = _philox_draws(lane, it, nd, seed0, seed1)
-            survive = u[0] < reflectance
-            ndx, ndy, ndz = _scatter_dir(model, m0, m1, u, -qx * inv_r,
-                                         -qy * inv_r, -qz * inv_r,
-                                         dx, dy, dz)
-
-            done_exit = active & escaped
-            done_abs = active & ~escaped & ~survive
-            done_susp = (active & ~escaped & survive
-                         & (rbounces + 1 >= max_bounces))
-            done = done_exit | done_abs | done_susp
-            sidx = torch.where(done, base + ray_idx.long() * lane_block, n)
-            status_o[sidx] = _i32(torch.where(
-                done_exit, EXITED, torch.where(done_abs, ABSORBED,
-                                               SUSPENDED)))
-            segx[sidx], segy[sidx], segz[sidx] = qx, qy, qz
-            dirx[sidx], diry[sidx], dirz[sidx] = dx, dy, dz
-            bounces_o[sidx] = torch.where(done_exit, rbounces, rbounces + 1)
-
-            cont = active & ~done   # a wall bounce: the ray goes on
-            px = torch.where(done, sx0, torch.where(cont, qx, px))
-            py = torch.where(done, sy0, torch.where(cont, qy, py))
-            pz = torch.where(done, sz0, torch.where(cont, qz, pz))
-            dx = torch.where(done, dx0, torch.where(cont, ndx, dx))
-            dy = torch.where(done, dy0, torch.where(cont, ndy, dy))
-            dz = torch.where(done, dz0, torch.where(cont, ndz, dz))
-            rbounces = torch.where(done, 0, torch.where(cont, rbounces + 1,
-                                                        rbounces))
+            need = (ray_idx >= budget).view(m, threads).long()
+            q = (nxt[:, None] + need.cumsum(1) - need).view(-1)
+            take = need.view(-1).bool() & (q < lanes)
+            p = torch.where(take, q, p)
+            k = torch.where(take, 0, k)
+            ray_idx = torch.where(take, 0, ray_idx)
+            nxt = torch.clamp(nxt + need.sum(1), max=lanes)
+            active = ray_idx < budget
+            lane = unit * lanes + p
+            lane_h = (_fmix32((lane & _M32) ^ (ph.seed0 ^ ph.seed1))
+                      if ph.rng == "hash" else None)
+            done, status, q3, nb, (px, py, pz, ndx, ndy, ndz, rb) = (
+                _refill_step(ph, lane, lane_h, k, active, px, py, pz, dx,
+                             dy, dz, rb))
+            sidx = torch.where(done, unit * (budget * lanes)
+                               + ray_idx.long() * lanes + p, n)
+            for plane, v in zip(planes, (status, *q3, dx, dy, dz, nb)):
+                plane[sidx] = v
+            dx, dy, dz = ndx, ndy, ndz
+            k = k + active.long()
             ray_idx = ray_idx + _i32(done)
-            it += 1
+        step += INNER_ITERS
 
-    status_o, bounces_o = status_o[:n], bounces_o[:n]
-    seg = Vec3(segx[:n], segy[:n], segz[:n])
-    direction = Vec3(dirx[:n], diry[:n], dirz[:n])
-    last = Vec3(*_box_flight(status_o == EXITED, *seg, *direction,
-                             world_half))
-    live = (LiveState(Vec3(px, py, pz), Vec3(dx, dy, dz), ray_idx,
-                      _i32(rbounces)) if thresh > 0 else None)
-    return TraceResult(status_o, last, seg, direction, bounces_o), live
+    status, segx, segy, segz, dirx, diry, dirz, bounces = (
+        pl[:n] for pl in planes)
+    seg = Vec3(segx, segy, segz)
+    direction = Vec3(dirx, diry, dirz)
+    last = Vec3(*_box_flight(status == EXITED, *seg, *direction,
+                             scene_vec[3]))
+    res = TraceResult(status, last, seg, direction, bounces)
+    if live is None:
+        return res, None
+    return res, LiveState(Vec3(*live[0:3]), Vec3(*live[3:6]), live[6],
+                          live[7])
 
 
 @functools.cache
@@ -580,7 +669,7 @@ def _refill_fn():
     lib = _build.load("refill")
     lanes = lib.altair_refill_lanes()
     if lanes != REFILL_LANES:
-        raise RuntimeError(f"csrc/refill.cu has {lanes} lanes per block, "
+        raise RuntimeError(f"csrc/refill.cu has {lanes} lanes per unit, "
                            f"the wrapper {REFILL_LANES}")
     fn = lib.altair_refill
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
@@ -639,23 +728,27 @@ def refill(seed, scene_vec, src_vec, n: int, model, max_bounces: int,
 
     Returns the 11 per-slot fields as a ``TraceResult`` (unfinished slots
     read RUNNING with zero fields) and, when ``thresh > 0``, the lanes'
-    ``LiveState``.  ``thresh`` is the handoff threshold: a block leaves
-    its loop once at most ``thresh`` of its rays are left.  ``n`` must be
-    a multiple of ``lane_block * budget``; the kernel's ``lane_block`` is
-    ``REFILL_LANES``, the plain version takes any.  Operands and ``rng``
-    as for ``bounce``.  A CUDA ``scene_vec`` launches the CUDA kernel; a
-    CPU one runs ``refill_plain``."""
+    ``LiveState``.  ``thresh`` is the handoff threshold: a unit of
+    ``lane_block`` lanes leaves its loop once at most ``thresh`` of its
+    rays are left.  ``n`` must be a multiple of ``lane_block * budget``;
+    the kernel's ``lane_block`` is ``REFILL_LANES`` (one warp's pool).
+    Operands and ``rng`` as for ``bounce``.  A CUDA ``scene_vec`` launches
+    the CUDA kernel; a CPU one runs ``refill_plain`` with the kernel's
+    lanes per thread (``REFILL_LANES / REFILL_THREADS``): the kernel's
+    warp schedule at its own ``lane_block``, and the same kind of pool
+    schedule at another (the Pallas block, which the tests compare)."""
     _check_args(seed, scene_vec, src_vec, n, model, max_bounces, rng)
     _check_refill_args(n, budget, thresh, lane_block)
     if scene_vec.device.type == "cuda":
         if lane_block != REFILL_LANES:
-            raise ValueError(f"the refill kernel's lane block is "
-                             f"{REFILL_LANES}, got {lane_block}")
+            raise ValueError(f"the refill kernel's unit is "
+                             f"{REFILL_LANES} lanes, got {lane_block}")
         return _refill_cuda(seed, scene_vec, src_vec, n, model, max_bounces,
                             budget, thresh, rng)
     if scene_vec.device.type == "cpu":
+        threads = max(1, lane_block * REFILL_THREADS // REFILL_LANES)
         return refill_plain(seed, scene_vec, src_vec, n, model, max_bounces,
-                            budget, thresh, rng, lane_block)
+                            budget, thresh, rng, lane_block, threads)
     raise ValueError(f"no refill kernel for device {scene_vec.device}")
 
 
@@ -721,7 +814,7 @@ def trace_rays_refill(
     rays_per_lane``, the philox stream, the seed words drawn from ``gen``.
     For exits ``seg_start`` is the cap crossing, on the escape line.
 
-    ``handoff_frac > 0`` turns on the tail handoff: each block leaves its
+    ``handoff_frac > 0`` turns on the tail handoff: each unit leaves its
     loop once at most ``int(handoff_frac * REFILL_LANES * rays_per_lane)``
     of its rays are left, and the stragglers finish in the waves tracer
     (``_refill_handoff_continue``); their ``seg_start`` is the last wall
@@ -760,8 +853,8 @@ def _refill_handoff_continue(gen, scene, cfg, res, live: LiveState, src_vec,
 
     A slot still RUNNING is the lane's live ray (slot == its ``ray_idx``:
     it goes on from the live state) or one never started (a source ray).
-    A block leaves its loop with at most ``thresh`` rays left, so
-    ``n_blocks * thresh`` lanes hold them all and the grouped compaction
+    A unit leaves its loop with at most ``thresh`` rays left, so
+    ``n_units * thresh`` lanes hold them all and the grouped compaction
     drops none; its drop count is added to the overflow all the same.
 
     As in the JAX package, a straggler's bounce budget restarts: the waves
@@ -774,17 +867,17 @@ def _refill_handoff_continue(gen, scene, cfg, res, live: LiveState, src_vec,
     from .trace_waves import trace_waves_from_state
 
     n = res.status.shape[0]
-    per_block = budget * REFILL_LANES
-    cap = (n // per_block) * thresh
+    per_unit = budget * REFILL_LANES
+    cap = (n // per_unit) * thresh
     pending = res.status == RUNNING
     idx, dropped = nonzero_indices_grouped(pending, cap, n,
                                            group_capacity=cap)
     valid = idx < n
     safe = torch.clamp(idx, max=n - 1)
-    blk = safe // per_block
-    rem = safe - blk * per_block
+    unit = safe // per_unit
+    rem = safe - unit * per_unit
     slot = rem // REFILL_LANES
-    lane = blk * REFILL_LANES + (rem - slot * REFILL_LANES)
+    lane = unit * REFILL_LANES + (rem - slot * REFILL_LANES)
     is_live = valid & (slot == live.ray_idx[lane])
 
     def pick(plane, src_value):

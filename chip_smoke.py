@@ -13,7 +13,15 @@ the full 180x90 detector grid) through ``trace_rays_auto`` +
 ``sweep_detector_trace_once``, traces 4,194,304 rays through both engines
 (the simulate engine through the refill kernel, its tail handoff and the
 waves tracer), and times the refill kernel, its straggler finish and the
-simulate engine at 4M rays with and without the handoff.  Then the
+simulate engine at 4M rays with and without the handoff.  The refill
+kernel (warp-owned lane pools) is held against its plain version at every
+size the main paths launch it with (2^20, 4,194,304 and the retrace
+chunk's), for the four laws with and without the handoff, and at 65,536
+rays against the lane-static schedule without it.  Each kernel's bound is
+the larger of its bytes over the memory rate, the arithmetic of its
+per-step SASS instruction mix (cuobjdump) times the steps this run traced
+on its slowest pipe, and for the bounce kernel its longest ray's serial
+chain.  Then the
 retrace path: the Sobol generator against the CPU bit for bit, the
 binomial retrace map at bench size (50,000 rays per position, oversample
 128, the full grid) against a 4M-ray trace-once map, 16 replicate maps,
@@ -270,9 +278,13 @@ def phase_scale(device, n=N_SCALE, seed=100, window=EXIT_WINDOW):
 
 
 def phase_refill_vs_plain(device, n=65_536, max_bounces=256, budget=4):
-    """The refill kernel against refill_plain at the same lane block, hash
+    """The refill kernel against refill_plain at the same unit, hash
     stream, all four laws, without and with the handoff (fraction 0.4):
-    the 11 slot fields, and the 8 live planes when there are any."""
+    the 11 slot fields, and the 8 live planes when there are any.  Without
+    the handoff the kernel is also held against the lane-static schedule
+    (``threads_per_unit`` = the unit's lanes: a thread per lane, all from
+    step 0, the schedule before the warp pools), which runs other steps
+    in another order: a lane's slots do not depend on its thread."""
     from altair_tpu_torch import SCENE_OPTIMIZE, SOURCE_OVERNIGHT, SurfaceModel
     from altair_tpu_torch.core import trace_cuda
 
@@ -302,6 +314,17 @@ def phase_refill_vs_plain(device, n=65_536, max_bounces=256, budget=4):
             check(same_live, f"refill {name}: live planes differ")
             check(thresh == 0 or rows[name]["pending"] > 0,
                   f"refill {name}: the handoff left no stragglers")
+            if thresh == 0:
+                b = trace_cuda.refill_plain(
+                    *args, rng="hash",
+                    threads_per_unit=trace_cuda.REFILL_LANES)[0]
+                agree_b, err_b = compare(k, b)
+                rows[name]["lane_static"] = {"agree": agree_b,
+                                             "max_abs_err_cm": err_b}
+                check(agree_b >= 0.999 and err_b <= 1e-3,
+                      f"refill {name}: the kernel differs from the "
+                      f"lane-static schedule ({agree_b}, {err_b} cm)")
+                err = max(err, err_b)
             err_max = max(err_max, err)
     return {"phase": "refill_vs_plain_hash", "n": n, "budget": budget,
             "max_bounces": max_bounces, "laws": rows,
@@ -325,34 +348,57 @@ def _refill_main_shape(device):
     return scene, sv, srcv, budget, thresh
 
 
-def _refill_against_plain(device, n):
-    """The refill kernel at n rays in the main-trace shape (philox,
-    Lambertian) against ``refill_plain`` on the same inputs: kernel ms
-    (CUDA events), plain ms (host clock, one call), per-slot agreement
-    and the live planes.  Fails unless >= 99.9% of slots agree within
-    1e-3 cm and the live planes are equal.  Returns ``(row, result,
-    live)`` of the kernel."""
-    from altair_tpu_torch import SurfaceModel
+def _refill_against_plain(device, n, model=None, rng="philox",
+                          handoff=True):
+    """The refill kernel at n rays in the main-trace shape (by default
+    philox, Lambertian, the handoff at ``_REFILL_HANDOFF``) against
+    ``refill_plain`` on the same inputs: kernel ms (CUDA events), plain
+    ms (host clock, one call), per-slot agreement and the live planes.
+    Fails unless >= 99.9% of slots agree within 1e-3 cm and the live
+    planes are equal.  Returns ``(row, result, live)`` of the kernel."""
+    from altair_tpu_torch import SOURCE_OVERNIGHT, SurfaceModel
     from altair_tpu_torch.core import trace_cuda
 
-    _, sv, srcv, budget, thresh = _refill_main_shape(device)
-    args = ((7, 8), sv, srcv, n, int(SurfaceModel.LAMBERTIAN), MAX_BOUNCES,
-            budget, thresh)
-    row = {"refill_ms": cuda_ms(lambda: trace_cuda.refill(*args,
-                                                          rng="philox"))}
-    res, live = trace_cuda.refill(*args, rng="philox")
+    scene, _, _, budget, thresh = _refill_main_shape(device)
+    model = SurfaceModel.LAMBERTIAN if model is None else model
+    sv, srcv = trace_cuda.kernel_operands(
+        scene.with_(surface_model=model), SOURCE_OVERNIGHT, device)
+    thresh = thresh if handoff else 0
+    args = ((7, 8), sv, srcv, n, int(model), MAX_BOUNCES, budget, thresh)
+    row = {"refill_ms": cuda_ms(lambda: trace_cuda.refill(*args, rng=rng))}
+    res, live = trace_cuda.refill(*args, rng=rng)
     sync(device)
     t0 = time.perf_counter()
-    p, p_live = trace_cuda.refill_plain(*args, rng="philox")
+    p, p_live = trace_cuda.refill_plain(*args, rng=rng)
     sync(device)
     row["plain_ms"] = (time.perf_counter() - t0) * 1e3
     agree, err = compare(res, p)
     row.update(agree=agree, max_abs_err_cm=err,
                live_equal=live_equal(live, p_live))
-    check(agree >= 0.999, f"refill n={n}: {agree} of slots agree")
-    check(err <= 1e-3, f"refill n={n}: positions differ by {err}")
-    check(row["live_equal"], f"refill n={n}: live planes differ")
+    name = f"refill n={n} {model.name}/{rng}/thresh={thresh}"
+    check(agree >= 0.999, f"{name}: {agree} of slots agree")
+    check(err <= 1e-3, f"{name}: positions differ by {err}")
+    check(row["live_equal"], f"{name}: live planes differ")
     return row, res, live
+
+
+def _refill_laws_against_plain(device, n):
+    """The refill kernel at n rays against ``refill_plain`` for the four
+    laws, with the handoff at ``_REFILL_HANDOFF`` and without it:
+    Lambertian on the production stream (philox), the other three on the
+    hash stream (their plain versions' Philox rounds take longest at this
+    size).  Returns one row per law and setting."""
+    from altair_tpu_torch import SurfaceModel
+
+    rows = {}
+    for model in SurfaceModel:
+        rng = "philox" if model == SurfaceModel.LAMBERTIAN else "hash"
+        for handoff in (True, False):
+            if model == SurfaceModel.LAMBERTIAN and handoff:
+                continue            # the main shape: _refill_against_plain
+            rows[f"{model.name}/{rng}/{'handoff' if handoff else 'none'}"] = (
+                _refill_against_plain(device, n, model, rng, handoff)[0])
+    return rows
 
 
 def phase_refill_timing(device, sizes=(1 << 20, N_SCALE)):
@@ -360,10 +406,15 @@ def phase_refill_timing(device, sizes=(1 << 20, N_SCALE)):
     (production scene without the rim, philox, 4096 cap, budget 4,
     handoff 0.01; n = N_SCALE is the main path's own launch) against its
     plain version once at each n (per-slot agreement, live planes and
-    time), without the handoff, against the bounce kernel at the same n,
-    and the stragglers' finish in the waves tracer."""
+    time), the four laws with and without the handoff against theirs,
+    the kernel without the handoff, the bounce kernel at the same n, and
+    the stragglers' finish in the waves tracer.  Each row records the
+    bounce steps the kernel ran and the bytes it wrote, for its bound.
+    The lane-static kernel this one replaced is not timed here; its times
+    are those of the earlier calls recorded in PERF.md."""
     from altair_tpu_torch import SurfaceModel, TraceConfig
     from altair_tpu_torch.core import trace_cuda
+    from altair_tpu_torch.profile_refill import traced_steps
 
     scene, sv, srcv, budget, thresh = _refill_main_shape(device)
     law = int(SurfaceModel.LAMBERTIAN)
@@ -372,6 +423,15 @@ def phase_refill_timing(device, sizes=(1 << 20, N_SCALE)):
     for n in sizes:
         args = ((7, 8), sv, srcv, n, law, MAX_BOUNCES)
         row, res, live = _refill_against_plain(device, n)
+        row["traced_steps"] = traced_steps(res, live)
+        row["bytes"] = refill_bytes(n, budget, thresh)
+        pending = (res.status == 0).view(-1, trace_cuda.REFILL_LANES
+                                         * budget).sum(1)
+        row["units_with_stragglers"] = float((pending > 0).float().mean())
+        check(int(pending.max()) <= thresh,
+              f"refill n={n}: a unit left {int(pending.max())} rays > "
+              f"{thresh}")
+        row["laws"] = _refill_laws_against_plain(device, n)
         row["refill_no_handoff_ms"] = cuda_ms(lambda: trace_cuda.refill(
             *args, budget, 0, rng="philox"))
         row["bounce_ms"] = cuda_ms(lambda: trace_cuda.bounce(
@@ -397,6 +457,45 @@ def phase_refill_timing(device, sizes=(1 << 20, N_SCALE)):
         row["mean_bounces"] = float(fin.n_bounces.float().mean())
         out[str(n)] = row
     return out
+
+
+def _errors(obj):
+    """Every ``max_abs_err_cm`` in a phase's nested rows."""
+    if isinstance(obj, dict):
+        return [v for k, v in obj.items() if k == "max_abs_err_cm"] + [
+            e for v in obj.values() for e in _errors(v)]
+    return []
+
+
+def refill_bytes(n, budget, thresh):
+    """The bytes the refill kernel must move for n rays: the 11 slot
+    planes written (44 bytes a ray), the 8 live planes with the handoff
+    (32 bytes a lane), the two 8-float operands read."""
+    return 44 * n + (32 * (n // budget) if thresh > 0 else 0) + 64
+
+
+def kernel_bound(mix, crd, steps, n_bytes, chain_ms=0.0):
+    """The least time the card could take for a kernel's work, the
+    largest of: its bytes over the memory rate; the arithmetic of its
+    ``steps`` bounce steps of the SASS instruction mix ``mix`` on the
+    slowest pipe (``profile_refill.ops_bound_ms``: control, moves, uniform
+    and warp-vote code left out); and ``chain_ms``, the serial chain of
+    its longest ray (dependent operations: bound by operations too).
+    ``binds`` names which; ``issue_ms``, every instruction of the step on
+    the issue slots, is the kernel's own overhead-inclusive floor, beside
+    the bound and not in it."""
+    from altair_tpu_torch.profile_refill import (bytes_bound_ms,
+                                                 ops_bound_ms, pipe_ms)
+
+    ops_ms, pipe = ops_bound_ms(mix, steps, crd)
+    cands = {"bytes": bytes_bound_ms(n_bytes), f"{pipe} pipe": ops_ms,
+             "serial chain": chain_ms}
+    binds = max(cands, key=cands.get)
+    return {"bound_ms": cands[binds],
+            "bound_by": "bytes" if binds == "bytes" else "operations",
+            "binds": binds, "ops_ms": ops_ms, "bytes_ms": cands["bytes"],
+            "chain_ms": chain_ms,
+            "issue_ms": pipe_ms(mix, steps, crd)["issue"]}
 
 
 def phase_simulate_e2e(device, n=N_SCALE, seed=300):
@@ -448,9 +547,14 @@ def phase_simulate_e2e(device, n=N_SCALE, seed=300):
 def phase_kernel_timing(device, n=N_HEADLINE, kernel_reps=5, plain_reps=2):
     """The bounce kernel and its plain version at the headline's shape (the
     simulate engine's main trace: production scene without the rim,
-    philox, 4096-bounce cap): per-lane agreement and times."""
+    philox, 4096-bounce cap): per-lane agreement and times, the bounce
+    steps it ran and the bytes it wrote (for its bound), and its longest
+    ray's serial chain: that ray's steps times the per-bounce latency of
+    a one-thread launch, which no one-ray-per-thread design can beat."""
     from altair_tpu_torch import SCENE_OPTIMIZE, SOURCE_OVERNIGHT, SurfaceModel
     from altair_tpu_torch.core import trace_cuda
+    from altair_tpu_torch.profile_refill import (bounce_step_latency_ms,
+                                                 traced_steps)
 
     scene = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES, exact_rim=False)
     sv, srcv = trace_cuda.kernel_operands(scene, SOURCE_OVERNIGHT, device)
@@ -468,12 +572,17 @@ def phase_kernel_timing(device, n=N_HEADLINE, kernel_reps=5, plain_reps=2):
     agree, err = compare(k, p)
     check(agree >= 0.999, f"philox kernel vs plain: {agree} of lanes agree")
     check(err <= 1e-3, f"philox kernel vs plain: positions differ by {err}")
+    latency = bounce_step_latency_ms(device)
+    longest = int((k.n_bounces + (k.status == 1).int()).max())
     return {"phase": "kernel_timing", "n": n, "max_bounces": MAX_BOUNCES,
             "rng": "philox", "kernel_ms": kernel_ms,
             "plain_ms": min(plain_times), "agree": agree,
             "max_abs_err_cm": err,
             "mean_bounces": float(k.n_bounces.float().mean()),
-            "max_bounces_seen": int(k.n_bounces.max())}
+            "max_bounces_seen": int(k.n_bounces.max()),
+            "traced_steps": traced_steps(k), "bytes": 44 * n + 64,
+            "bounce_step_latency_ms": latency,
+            "longest_ray_steps": longest, "chain_ms": longest * latency}
 
 
 def phase_qmc_bits(device, n=1 << 22, dim=7, seed=0):
@@ -665,9 +774,10 @@ def phase_retrace_rows(device, binom_cells, save_folder, n_per_pos=50_000,
           "kernel")
     # the refill kernel against its plain version at each size this sweep
     # launched it with (after the counts were read)
-    out["simulate"]["refill_vs_plain"] = {
-        str(n): _refill_against_plain(device, n)[0]
-        for n in out["simulate"]["refill_sizes"]}
+    vs_plain = out["simulate"]["refill_vs_plain"] = {}
+    for n in out["simulate"]["refill_sizes"]:
+        vs_plain[str(n)] = _refill_against_plain(device, n)[0]
+        vs_plain[str(n)]["laws"] = _refill_laws_against_plain(device, n)
 
     # resume the simulate sweep from its own first row
     with open(out["simulate"]["csv"]) as fh:
@@ -778,21 +888,29 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
+    from altair_tpu_torch import profile_refill
     from altair_tpu_torch.core import _build, trace_cuda
 
     smi = nvidia_smi()
     t0 = time.perf_counter()
     _build.build(*trace_cuda.KERNELS)       # one nvcc per kernel, at once
     build_s = time.perf_counter() - t0
-    ptxas = {}
+    ptxas, mix = {}, {}
     for name in trace_cuda.KERNELS:
         _build.load(name)
         with open(_build.library_path(name).with_suffix(".log")) as fh:
-            ptxas[name] = [ln.strip() for ln in fh if "registers" in ln]
+            ptxas[name] = [ln.strip() for ln in fh
+                           if "registers" in ln or "spill" in ln]
+        # the Lambertian, philox instantiation: the main path's
+        mix[name] = profile_refill.sass_step_mix(
+            _build.library_path(name), f"{name}_kernelILi0ELb0E")
+    crd = profile_refill.card()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
-          "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s, "ptxas": ptxas})
+          "card": crd, "torch": torch.__version__, "cuda": torch.version.cuda,
+          "build_s": build_s, "ptxas": ptxas,
+          "refill_lanes": _build.load("refill").altair_refill_lanes(),
+          "sass_step_mix": mix})
 
     emit(phase_kernel_vs_plain(device))
     refill_hash = phase_refill_vs_plain(device)
@@ -841,13 +959,22 @@ def main() -> int:
     emit(rows_out)
     emit(phase_cli(device, os.path.join(save, "cli")))
 
-    # the refill row's times are at the main path's shape (N_SCALE rays)
+    # the refill row's times are at the main path's shape (N_SCALE rays);
+    # each bound from this run's steps and bytes at that shape
     r_main = refill_timing[str(N_SCALE)]
-    refill_err = max([refill_hash["max_abs_err_cm"]]
-                     + [r["max_abs_err_cm"] for r in refill_timing.values()
-                        if isinstance(r, dict)]
-                     + [r["max_abs_err_cm"] for r in
-                        rows_out["simulate"]["refill_vs_plain"].values()])
+    refill_err = max(_errors(refill_hash) + _errors(refill_timing)
+                     + _errors(rows_out["simulate"]["refill_vs_plain"]))
+    bounds = {
+        "bounce": kernel_bound(mix["bounce"], crd, timing["traced_steps"],
+                               timing["bytes"], timing["chain_ms"]),
+        "refill": kernel_bound(mix["refill"], crd, r_main["traced_steps"],
+                               r_main["bytes"]),
+    }
+    emit({"phase": "bounds", "card": crd, **bounds,
+          "share": {"bounce": bounds["bounce"]["bound_ms"]
+                    / timing["kernel_ms"],
+                    "refill": bounds["refill"]["bound_ms"]
+                    / r_main["refill_ms"]}})
     rows = {
         "bounce": (launches, timing["max_abs_err_cm"], timing["kernel_ms"],
                    timing["plain_ms"]),
@@ -855,10 +982,14 @@ def main() -> int:
                    r_main["refill_ms"], r_main["plain_ms"]),
     }
     print(smi)
+    # no single PyTorch call computes either kernel's function:
+    # library_ms is null
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": trace_cuda.KERNELS[name][0],
          "replaces": trace_cuda.KERNELS[name][1], "launches": n_launch,
-         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": bounds[name]["bound_ms"],
+         "bound_by": bounds[name]["bound_by"], "library_ms": None}
         for name, (n_launch, err, ms, plain_ms) in rows.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,16 @@
 Without the handoff both sides draw from the counter-based hash generator
 (``hw_prng=False`` / ``rng="hash"``) with the same key words, and
 ``refill_plain`` takes Pallas's 16384-lane block, so the comparison is per
-slot.  With the handoff the block-wide loop exit and the continuation's
+slot.  With the handoff the unit-wide loop exit and the continuation's
 streams differ, so that path is held statistically.  The CUDA kernel is
 held against ``refill_plain`` on the card (``tests/test_torch_refill_cuda.py``,
 ``chip_smoke.py``).
+
+``refill_plain`` is the kernel's loop written out step by step over
+``[units, threads]`` (threads taking lanes from their unit's pool); the
+warp schedule (32 threads a unit) and the lane-static one (a thread per
+lane) run different steps and must give the same slots without the
+handoff.
 """
 
 import functools
@@ -273,6 +279,9 @@ def test_refill_guards():
         trace_cuda.refill((1, 2), sv, srcv, 1024, 0, 16, 2, thresh=-1)
     with pytest.raises(ValueError):
         trace_cuda.refill((1, 2), sv, srcv, 1024, 0, 16, 2, rng="threefry")
+    with pytest.raises(ValueError):
+        trace_cuda.refill_plain((1, 2), sv, srcv, 1024, 0, 16, 2,
+                                threads_per_unit=0)
     scene = convert.scene(SCENE_H)
     src = convert.source(SOURCE_OVERNIGHT)
     with pytest.raises(ValueError):
@@ -284,3 +293,187 @@ def test_refill_guards():
                                      rays_per_lane=2, device="cpu")
     empty, _ = trace_cuda.refill((1, 2), sv, srcv, 0, 0, 16, 2, thresh=3)
     assert empty.status.shape == (0,)
+
+
+# ---------------------------------------------------------------------------
+# The warp schedule: threads taking lanes from their unit's pool
+# ---------------------------------------------------------------------------
+
+POOL = 128          # lanes of a unit in the schedule tests
+N_POOL = 4 * POOL * BUDGET
+CAP_POOL = 24       # the bounce cap there: short lanes, many suspended
+
+
+def _assert_same_refill(a, b):
+    """Two refill results equal plane for plane (and their live states)."""
+    (ra, la), (rb, lb) = a, b
+    for fa, fb in zip(_planes(ra), _planes(rb)):
+        assert torch.equal(fa, fb)
+    assert (la is None) == (lb is None)
+    if la is not None:
+        for fa, fb in zip((*la.pos, *la.direction, la.ray_idx, la.bounces),
+                          (*lb.pos, *lb.direction, lb.ray_idx, lb.bounces)):
+            assert torch.equal(fa, fb)
+
+
+def _planes(res):
+    return (res.status, *res.last_point, *res.seg_start, *res.direction,
+            res.n_bounces)
+
+
+@pytest.mark.parametrize("rng", ["hash", "philox"])
+@pytest.mark.parametrize("model", list(SurfaceModel))
+def test_warp_and_block_schedules_agree_without_handoff(model, rng):
+    """At thresh 0 a lane's slots do not depend on which thread takes it
+    or when: the warp schedule (32 threads a unit, each taking 4 lanes in
+    turn) and the lane-static block schedule (a thread per lane, all from
+    step 0) give every slot plane bit for bit."""
+    sv, srcv = _operands(model, CAP_POOL)
+    args = ((7, 9), sv, srcv, N_POOL, int(model), CAP_POOL, BUDGET, 0, rng,
+            POOL)
+    warp = trace_cuda.refill_plain(*args, threads_per_unit=32)
+    block = trace_cuda.refill_plain(*args, threads_per_unit=POOL)
+    _assert_same_refill(warp, block)
+    assert set(np.unique(warp[0].status.numpy())) <= {1, 2, 3}
+
+
+@pytest.mark.parametrize("threads", [32, POOL])
+def test_handoff_schedule_matches_the_kernel_loop(threads):
+    """With the handoff the kernel's loop leaves each unit with at most
+    ``thresh`` rays pending, most units with some; the pending slots are
+    exactly each lane's from its live ``ray_idx`` on, the finished ones
+    are those of the run without the handoff (a lane's rays do not depend
+    on where its unit stops), and a rerun gives the same result.
+    ``threads == lanes`` is the lane-static schedule; 32 the warp's."""
+    thresh = int(HANDOFF * POOL * BUDGET)
+    sv, srcv = _operands(SurfaceModel.LAMBERTIAN)
+    args = ((5, 8), sv, srcv, N_POOL, 0, MAX_BOUNCES, BUDGET, thresh,
+            "philox", POOL)
+    plain = trace_cuda.refill_plain(*args, threads_per_unit=threads)
+    _assert_same_refill(plain, trace_cuda.refill_plain(
+        *args, threads_per_unit=threads))
+    res, live = plain
+    pending = res.status == RUNNING
+    per_unit = pending.view(-1, POOL * BUDGET).sum(1)
+    assert int(per_unit.max()) <= thresh
+    assert (per_unit > 0).float().mean() >= 0.75
+    f = torch.arange(N_POOL)
+    unit, slot = f // (BUDGET * POOL), (f % (BUDGET * POOL)) // POOL
+    assert torch.equal(pending,
+                       slot >= live.ray_idx[unit * POOL + f % POOL])
+    full, _ = trace_cuda.refill_plain(*args[:7], 0, *args[8:],
+                                      threads_per_unit=threads)
+    for a, b in zip(_planes(res), _planes(full)):
+        assert torch.equal(a[~pending], b[~pending])
+
+
+def test_live_planes_hold_the_three_lane_kinds():
+    """After a handoff exit under the warp schedule each lane is one of:
+    never taken (ray_idx 0 and no bounce: a lane in flight on its first
+    ray has bounced at least once; the source ray, every slot pending),
+    spent (ray_idx == budget, the source ray, no slot pending) or in
+    flight (its slots from ray_idx on pending); all three occur, the lanes
+    never taken are the end of their unit's pool, and the decode the
+    straggler finish uses holds."""
+    lanes, budget = trace_cuda.REFILL_LANES, 4
+    n = 4 * lanes * budget
+    thresh = int(0.4 * lanes * budget)
+    sv, srcv = _operands(SurfaceModel.LAMBERTIAN)
+    res, live = trace_cuda.refill((2, 3), sv, srcv, n, 0, MAX_BOUNCES,
+                                  budget, thresh, rng="philox")
+    f = np.arange(n)
+    unit, slot = f // (budget * lanes), (f % (budget * lanes)) // lanes
+    lane = unit * lanes + f % lanes
+    ray_idx = live.ray_idx.numpy()
+    pending = res.status.numpy() == RUNNING
+    np.testing.assert_array_equal(pending, slot >= ray_idx[lane])
+    src = srcv.numpy()
+    at_src = np.all([c.numpy() == src[i] for i, c in
+                     enumerate((*live.pos, *live.direction))], axis=0)
+    spent = ray_idx == budget
+    never = (ray_idx == 0) & (live.bounces.numpy() == 0)
+    flight = ~never & ~spent
+    n_pend = np.bincount(lane[pending], minlength=n // budget)
+    assert never.any() and spent.any() and flight.any()
+    assert at_src[never].all() and at_src[spent].all()
+    assert (live.bounces.numpy()[never | spent] == 0).all()
+    assert (n_pend[never] == budget).all() and (n_pend[spent] == 0).all()
+    assert (n_pend[flight] == budget - ray_idx[flight]).all()
+    assert not at_src[flight].all()
+    # untaken lanes come after every taken one in their unit's pool
+    taken = (~never).reshape(-1, lanes)
+    assert all(t[:t.sum()].all() for t in taken)
+
+
+@pytest.mark.parametrize("threads", [32, trace_cuda.REFILL_LANES])
+def test_handoff_continuation_matches_jax(monkeypatch, threads):
+    """The whole handoff path under the warp schedule and the lane-static
+    one: no slot left RUNNING, no overflow, and the exit fraction and mean
+    bounces within 4 sigma of JAX's refill with the same handoff fraction
+    (independent streams)."""
+    monkeypatch.setattr(trace_cuda, "REFILL_THREADS", threads)
+    res, ovf = trace_cuda.trace_rays_refill(
+        torch.Generator().manual_seed(11), convert.scene(SCENE_H),
+        convert.source(SOURCE_OVERNIGHT), N, rays_per_lane=BUDGET,
+        handoff_frac=HANDOFF, device="cpu")
+    st = res.status.numpy()
+    assert ((st >= 1) & (st <= 3)).all() and int(ovf) == 0
+    ref = _jax_handoff()
+    _assert_same_law(st, res.n_bounces.numpy(), np.asarray(ref.status),
+                     np.asarray(ref.n_bounces), k=4)
+
+
+def test_sass_step_mix_counts_one_step():
+    """The per-step instruction count behind the kernels' bounds, on a
+    listing shaped like cuobjdump's: the innermost loop holding the
+    Philox multiplies is the step; a slow path jumped over around a
+    nested loop and a finished ray's stores are left out of it; register
+    moves (also as IMAD.MOV) and the warp's vote and lane count are told
+    apart from the arithmetic."""
+    from altair_tpu_torch.profile_refill import step_mix_of_sass
+
+    body = ["MOV R0, RZ", "FADD R1, R1, R2"]      # before the loop: 0x00-0x10
+    loop = (["IMAD.WIDE.U32 R4, R5, 0x3, RZ", "IMAD.HI.U32 R6, R7, 0x5, RZ"]
+            * 10 + ["FFMA R1, R2, R3, R4", "LOP3.LUT R8, R8, R9, RZ, 0x96, !PT",
+                    "MUFU.RSQ R2, R3", "IMAD.MOV.U32 R9, RZ, RZ, R8",
+                    "VOTE.ANY R3, PT, P0", "POPC R4, R3"])
+    n0 = len(body)
+    lines = body + loop
+    skip_at = len(lines)                          # jump over a slow path
+    slow = ["IADD3 R1, R1, 1, RZ", "ISETP.NE.AND P0, PT, R1, RZ, PT"]
+    lines += ["BRA 0x{:x}".format((skip_at + 1 + len(slow) + 1) * 16)]
+    lines += slow + ["@P0 BRA 0x{:x}".format((skip_at + 1) * 16)]
+    done_at = len(lines)                          # jump over the stores
+    lines += ["@!P1 BRA 0x{:x}".format((done_at + 4) * 16),
+              "FMUL R3, R3, R3", "STG.E desc[UR4][R10.64], R3",
+              "STG.E desc[UR4][R12.64], R3"]
+    lines += ["FADD R2, R2, R1", "@P2 BRA 0x{:x}".format(n0 * 16), "EXIT"]
+    text = "\n\t\tFunction : _Z13refill_kernelILi0ELb0EEv\n" + "\n".join(
+        "        /*{:04x}*/                   {} ;".format(16 * i, ins)
+        for i, ins in enumerate(lines))
+    mix = step_mix_of_sass(text, "refill_kernelILi0ELb0E")
+    assert mix["unroll"] == 1
+    # 20 multiplies + FFMA + LOP3 + MUFU + the move + VOTE and POPC + the
+    # skip branch + FADD + the back branch + the stores' guard branch
+    assert mix["per_step"] == {"imad": 20, "fp32": 2, "alu": 1, "xu": 1,
+                               "move": 1, "warp": 2, "control": 3}
+    assert mix["per_finished_ray"] == 3
+    assert len(mix["slow_paths_left_out"]) == 1
+
+
+def test_ops_bound_takes_the_slowest_arithmetic_pipe():
+    """The operations bound is the slowest of the arithmetic pipes (FP32
+    and IMAD sharing the FMA pipes); control, moves, uniform and warp code
+    only enter the issue-slot time reported beside it."""
+    from altair_tpu_torch.profile_refill import ops_bound_ms, pipe_ms
+
+    crd = {"sms": 100, "max_sm_clock_mhz": 1000.0}
+    steps = 100 * 1_000_000            # one step per SM per microsecond
+    mix = {"per_step": {"fp32": 100, "imad": 28, "alu": 32, "xu": 8,
+                        "control": 500, "move": 40, "uniform": 20,
+                        "warp": 2}}
+    ms, pipe = ops_bound_ms(mix, steps, crd)
+    assert pipe == "fp32+imad" and ms == pytest.approx(1.0)
+    mix["per_step"]["alu"] = 96        # 1.5 clocks a step on the ALU
+    assert ops_bound_ms(mix, steps, crd) == (pytest.approx(1.5), "alu")
+    assert pipe_ms(mix, steps, crd)["issue"] == pytest.approx(794 / 128)

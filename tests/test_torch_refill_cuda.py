@@ -72,6 +72,39 @@ def test_kernel_matches_plain(cuda, model, rng, handoff):
         assert (k.status == 0).any()        # the handoff left stragglers
 
 
+@pytest.mark.parametrize("handoff", [0.0, 0.01, 0.4])
+@pytest.mark.parametrize("units", [1, 5, 64])
+def test_kernel_matches_plain_at_unit_multiples(cuda, units, handoff):
+    """The warp schedule at 1, 5 and 64 units (one warp each), without
+    and with the handoff: slots and live planes equal the plain version's,
+    and each unit leaves with at most ``thresh`` rays pending."""
+    budget = trace_cuda._REFILL_BUDGET
+    n = units * LANES * budget
+    thresh = int(handoff * LANES * budget)
+    sv, srcv = _operands(cuda, max_bounces=512)
+    args = ((5, 6), sv, srcv, n, 0, 512, budget, thresh)
+    k, k_live = trace_cuda.refill(*args, rng="philox")
+    p, p_live = trace_cuda.refill_plain(*args, rng="philox")
+    _assert_matches_plain(k, k_live, p, p_live)
+    pending = (k.status == 0).view(units, -1).sum(1)
+    assert int(pending.max()) <= thresh
+
+
+@pytest.mark.parametrize("rng", ["hash", "philox"])
+@pytest.mark.parametrize("model", list(SurfaceModel))
+def test_kernel_equals_the_lane_static_schedule(cuda, model, rng):
+    """Without the handoff the kernel's slots are those of the lane-static
+    schedule (``threads_per_unit == LANES``: a thread per lane, all from
+    step 0), which the plain loop runs in other steps than the kernel's
+    warp schedule: a lane's draws are keyed by its own step count."""
+    n, budget, max_bounces = 32_768, 4, 256
+    sv, srcv = _operands(cuda, model, max_bounces)
+    args = ((13, 14), sv, srcv, n, int(model), max_bounces, budget, 0)
+    k, _ = trace_cuda.refill(*args, rng=rng)
+    p, _ = trace_cuda.refill_plain(*args, rng=rng, threads_per_unit=LANES)
+    _assert_matches_plain(k, None, p, None)
+
+
 def test_handoff_at_production_size(cuda):
     """The tail handoff at 2^20 rays with the dispatch's constants, which
     the TPU hardware tests never ran: the kernel matches its plain version
