@@ -1,9 +1,14 @@
-"""Command-line interface of the PyTorch port — the ``fluxmap`` and
-``distribution`` subcommands of ``altair_tpu/cli.py``, with the same
-arguments and defaults (no ``--mesh``), plus ``--device``:
+"""Command-line interface of the PyTorch port — the subcommands of
+``altair_tpu/cli.py``, with the same arguments and defaults (no ``--mesh``),
+plus ``--device``:
 
-  altair-tpu-torch fluxmap        <- sweepDetectorTraceOnce / sweepDetector
-  altair-tpu-torch distribution   <- distributionSphereDetectorSweep + NRays
+  altair-tpu-torch fluxmap         <- sweepDetectorTraceOnce / sweepDetector
+  altair-tpu-torch series          <- sweepSeries (port-angle / repeat series)
+  altair-tpu-torch distribution    <- distributionSphereDetectorSweep + NRays
+  altair-tpu-torch insphere        <- integratingSphereDetectorSweep
+  altair-tpu-torch visualize       <- visualizeDetector (PNG or HTML)
+  altair-tpu-torch analyze         <- flux_analysis.py
+  altair-tpu-torch scatter-retrace <- nonLambertianFlux sweepDetector
 
     python -m altair_tpu_torch.cli fluxmap --device cuda --rays 100000
 
@@ -137,6 +142,126 @@ def cmd_distribution(args):
     return 0
 
 
+def cmd_series(args):
+    device = _device(args)
+    scene, source = _scene_source(args)
+    src_xs = args.source_xs
+    if args.vmapped:
+        import os
+
+        import numpy as np
+
+        from .sweep import run_series_vmapped, stack_sources
+
+        if src_xs is not None:
+            # cross port_angles x source positions like the sequential path
+            # (one call per port; the source axis is the batched one)
+            per_port = []
+            for port in args.port_angles:
+                counts, exits = run_series_vmapped(
+                    scene.with_(theta_max_deg=float(port)),
+                    sources=stack_sources(source, x=src_xs), device=device,
+                    n_rays=args.rays, seed=args.seed, cfg=_cfg(args))
+                for x, e in zip(src_xs, exits):
+                    print(f"port {port} srcX {x}: exit fraction "
+                          f"{e / args.rays:.4f}")
+                per_port.append(counts)
+            counts = np.stack(per_port)  # [n_ports, n_src, n_theta, n_phi]
+        else:
+            counts, exits = run_series_vmapped(
+                scene, source, port_angles=args.port_angles, device=device,
+                n_rays=args.rays, seed=args.seed, cfg=_cfg(args))
+            for p, e in zip(args.port_angles, exits):
+                print(f"port {p}: exit fraction {e / args.rays:.4f}")
+        os.makedirs(args.out, exist_ok=True)
+        out_path = os.path.join(args.out, "series_fluxmaps.npy")
+        np.save(out_path, counts)
+        print(f"fluxmaps saved to {out_path}")
+    else:
+        from .sweep import run_series
+
+        run_series(scene, source, device=device,
+                   port_angles=args.port_angles,
+                   sources=(None if src_xs is None else
+                            [source.with_(x=float(x)) for x in src_xs]),
+                   repeats=args.repeats, n_rays=args.rays,
+                   save_root=args.out, seed=args.seed, cfg=_cfg(args))
+    return 0
+
+
+def cmd_insphere(args):
+    from .sweep import sweep_insphere_detector
+
+    device = _device(args)
+    scene, source = _scene_source(args)
+    scene = scene.with_(outer_radius=105.0, world_half=200.0)
+    r = sweep_insphere_detector(
+        scene, source, device=device, disk_radius=args.disk_radius,
+        n_rays=args.rays, dtheta=args.dtheta, theta_max=args.theta_max,
+        seed=args.seed, save_path=args.out_file, retrace=args.retrace,
+        cfg=_cfg(args))
+    print(f"{len(r.thetas)} positions in {r.wall_time_s:.2f}s -> "
+          f"{args.out_file}")
+    return 0
+
+
+def cmd_visualize(args):
+    from .viz import export_html, plot_rays, print_census, trace_paths
+
+    device = _device(args)
+    scene, source = _scene_source(args)
+    paths = trace_paths(scene, source, device=device, n_rays=args.rays,
+                        seed=args.seed, detector_theta=args.det_theta,
+                        detector_phi=args.det_phi)
+    print_census(paths, args.rays)
+    if args.out_file.endswith(".html"):
+        export_html(paths, scene, args.out_file,
+                    only_show_red=args.only_red)
+    else:
+        plot_rays(paths, scene, only_show_red=args.only_red,
+                  save_path=args.out_file)
+    print(f"saved {args.out_file}")
+    return 0
+
+
+def cmd_scatter_retrace(args):
+    import numpy as np
+
+    from .config import DetectorGrid
+    from .sweep import sweep_scatter_retrace
+
+    device = _device(args)
+    scene, source = _scene_source(args)
+    scene = scene.with_(specular_prob=args.specular, diffuse_prob=args.diffuse,
+                        brdf_roughness=args.brdf_roughness)
+    grid = DetectorGrid(n_theta=args.theta_bins, n_phi=args.phi_bins,
+                        width=args.detector_size, height=args.detector_size)
+    sw = sweep_scatter_retrace(scene, source, device=device,
+                               n_rays=args.rays, grid=grid, seed=args.seed,
+                               cfg=_cfg(args))
+    np.savetxt(args.out_file,
+               np.column_stack([
+                   np.repeat((np.arange(grid.n_theta) + 0.5)
+                             * (grid.theta_hi - grid.theta_lo)
+                             / grid.n_theta, grid.n_phi),
+                   np.tile((np.arange(grid.n_phi) + 0.5)
+                           * (grid.phi_hi - grid.phi_lo) / grid.n_phi,
+                           grid.n_theta),
+                   sw.fluxmap.ravel()]),
+               fmt="%.6f", delimiter=",", header="theta,phi,fraction",
+               comments="")
+    print(f"{grid.n_positions} positions in {sw.wall_time_s:.2f}s -> "
+          f"{args.out_file}")
+    return 0
+
+
+def cmd_analyze(args):
+    from .analysis import analyze
+
+    analyze(args.path, average_mode=args.average)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="altair-tpu-torch",
@@ -170,6 +295,25 @@ def main(argv=None) -> int:
     p.add_argument("--notify", action="store_true")
     p.set_defaults(fn=cmd_fluxmap)
 
+    p = sub.add_parser("series", help="port-angle / repeat sweep series")
+    _add_scene_args(p)
+    p.add_argument("--port-angles", type=float, nargs="+",
+                   default=[164.0])
+    p.add_argument("--source-xs", type=float, nargs="+", default=None,
+                   help="sweep the SOURCE x position instead of the port "
+                        "angle (the srcX axis of sweepSeries, "
+                        "fluxAtObserverOptimize.C:892-921); with "
+                        "--vmapped all positions run in one call")
+    p.add_argument("--repeats", type=int, default=5)
+    p.add_argument("--rays", type=int, default=100_000)
+    p.add_argument("--out", default=".")
+    p.add_argument("--vmapped", action="store_true",
+                   help="run all series members in one call with one "
+                        "readback (sweep.run_series_vmapped) instead of "
+                        "the reference's sequential loop of CSV-writing "
+                        "sweeps")
+    p.set_defaults(fn=cmd_series)
+
     p = sub.add_parser("distribution", help="exit angular distribution")
     _add_scene_args(p)
     p.add_argument("--rays", type=int, default=10_000)
@@ -178,6 +322,49 @@ def main(argv=None) -> int:
     p.add_argument("--angular-dist", default=None,
                    help="write angular_dist.txt-dialect histogram here")
     p.set_defaults(fn=cmd_distribution)
+
+    p = sub.add_parser("insphere", help="in-sphere detector-disk sweep")
+    _add_scene_args(p)
+    p.add_argument("--rays", type=int, default=100_000)
+    p.add_argument("--disk-radius", type=float, default=5.0)
+    p.add_argument("--dtheta", type=float, default=0.5)
+    p.add_argument("--theta-max", type=float, default=45.0)
+    p.add_argument("--retrace", action="store_true",
+                   help="re-trace per position (reference methodology)")
+    p.add_argument("--out-file", default="detector_sweep3.txt")
+    p.set_defaults(fn=cmd_insphere)
+
+    p = sub.add_parser("visualize", help="ray-path classification plot")
+    _add_scene_args(p)
+    p.add_argument("--rays", type=int, default=100)
+    p.add_argument("--det-theta", type=float, default=45.0)
+    p.add_argument("--det-phi", type=float, default=0.0)
+    p.add_argument("--only-red", action="store_true",
+                   help="showRedRaysOnly mode")
+    p.add_argument("--out-file", default="rays.png",
+                   help="output image (needs matplotlib); a .html extension "
+                        "writes the interactive drag-to-rotate viewer "
+                        "instead, which needs no matplotlib")
+    p.set_defaults(fn=cmd_visualize)
+
+    p = sub.add_parser("scatter-retrace",
+                       help="two-stage BRDF scatter-retrace sweep "
+                            "(nonLambertianFlux methodology)")
+    _add_scene_args(p)
+    p.add_argument("--rays", type=int, default=100_000)
+    p.add_argument("--theta-bins", type=int, default=45)
+    p.add_argument("--phi-bins", type=int, default=20)
+    p.add_argument("--detector-size", type=float, default=10.0)
+    p.add_argument("--specular", type=float, default=0.4)
+    p.add_argument("--diffuse", type=float, default=0.6)
+    p.add_argument("--brdf-roughness", type=float, default=0.3)
+    p.add_argument("--out-file", default="fluxmap_data.csv")
+    p.set_defaults(fn=cmd_scatter_retrace)
+
+    p = sub.add_parser("analyze", help="flux-map analysis/plots")
+    p.add_argument("path")
+    p.add_argument("--average", action="store_true")
+    p.set_defaults(fn=cmd_analyze)
 
     args = ap.parse_args(argv)
     return args.fn(args)

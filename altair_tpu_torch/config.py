@@ -133,8 +133,9 @@ class TraceConfig:
     `qmc`: Sobol draws in the direct sampler and in the deferred-rim
     hybrid's closed-form finish (``core/qmc.py``): 1 digital shift, 2 Owen
     scramble; the simulating engines ignore it, as in the JAX package.
-    `keep_history` is accepted but raises ``NotImplementedError`` where
-    the engines would need it: it is not ported yet.
+    `keep_history`: K > 0 keeps each ray's first K path points
+    (``TraceResult.history``, N*K*12 bytes in float32); only the eager
+    ``trace_rays`` has the buffer, and ``trace_rays_auto`` routes there.
     """
 
     dtype: Any = torch.float32

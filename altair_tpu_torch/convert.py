@@ -49,7 +49,7 @@ def trace_config(obj) -> config.TraceConfig:
 
 def trace_result(res, device) -> TraceResult:
     """A ``TraceResult`` whose fields are arrays (JAX or numpy) as the
-    port's, on ``device``."""
+    port's, on ``device``; a path history is carried along."""
     def t(a):
         return torch.from_numpy(np.array(a)).to(device)
 
@@ -60,7 +60,11 @@ def trace_result(res, device) -> TraceResult:
                        last_point=v(res.last_point),
                        seg_start=v(res.seg_start),
                        direction=v(res.direction),
-                       n_bounces=t(res.n_bounces).to(torch.int32))
+                       n_bounces=t(res.n_bounces).to(torch.int32),
+                       history=(None if res.history is None
+                                else t(res.history)),
+                       history_len=(None if res.history_len is None
+                                    else t(res.history_len).to(torch.int32)))
 
 
 def seed_words(key_data) -> tuple[int, int]:

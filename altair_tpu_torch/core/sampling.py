@@ -4,8 +4,8 @@
 Each law draws from a ``torch.Generator`` on the device of its tensors, in
 the place of a JAX key.  The streams differ from JAX's, so parity with the
 JAX package is statistical; the laws and their constructions are the same
-(see the JAX module's docstring for their reference sources).  The JAX
-module's custom-callable hook is not ported yet.
+(see the JAX module's docstring for their reference sources).  ``scatter``
+also takes a custom callable in the place of a law, as the JAX module does.
 """
 
 from __future__ import annotations
@@ -117,10 +117,15 @@ def cos_n_lobe(gen, normal: Vec3, n, max_angle_rad, rounds: int = 16) -> Vec3:
 
 
 def scatter(gen, model, incident: Vec3, normal: Vec3, scene) -> Vec3:
-    """Dispatch on the surface model (a ``SurfaceModel`` value)."""
+    """Dispatch on the surface model: a ``SurfaceModel`` value, or a custom
+    callable ``(gen, incident, normal, scene) -> Vec3`` (the archived
+    macro's user-overridable ``Reflection()`` hook, ``nonLambertianFlux
+    copy.C:187-220``).  The callable draws from ``gen``, a generator on the
+    device of the ray tensors.  A callable is not a static law, so the
+    kernels and the closed-form sampler leave such a scene to the eager
+    tracers."""
     if callable(model) and not isinstance(model, SurfaceModel):
-        raise NotImplementedError(
-            "custom scatter callables are not ported to altair_tpu_torch yet")
+        return model(gen, incident, normal, scene)
     model = SurfaceModel(model)
     if model == SurfaceModel.LAMBERTIAN:
         return cosine_hemisphere(gen, normal)

@@ -1,5 +1,4 @@
-"""Detector readout — the counterpart of ``altair_tpu/core/score.py``
-(the in-sphere disk scorer aside).
+"""Detector readout — the counterpart of ``altair_tpu/core/score.py``.
 
 Trace-once: every exiting ray's final segment is tested against all
 detector positions at once.  The production scorer ("mxu" in the JAX
@@ -12,7 +11,8 @@ chunks to bound the ``[N, P_chunk]`` working set.
 Retrace: fresh rays per position (``fluxmap_retrace``), or each cell drawn
 from its binomial law around one shared trace's hit probabilities
 (``fluxmap_retrace_binomial``).  Exit histograms: the signed port-axis
-angle and the cos-z payloads of the distribution run.
+angle and the cos-z payloads of the distribution run.  The in-sphere
+focal-surface disk of ``integratingSphereDetectorSweep.C`` closes the file.
 """
 
 from __future__ import annotations
@@ -25,7 +25,8 @@ import torch
 
 from ..config import DetectorGrid, SphereScene, Source, SurfaceModel, TraceConfig
 from .geometry import Vec3, detector_position, line_hits_disk
-from .trace import TraceResult, device_generator, f32, fold_in, split
+from .trace import (EXITED, TraceResult, device_generator, f32, fold_in,
+                    split)
 
 PARALLEL_EPS = 1e-10  # fluxAtObserver.C:78
 
@@ -433,3 +434,87 @@ def z_angle_histogram(dz, mask, n_bins: int = 100) -> torch.Tensor:
     idx = torch.clamp(((dz + 1.0) / 2.0 * n_bins).to(torch.int32), 0,
                       n_bins - 1)
     return _bin_counts(idx, mask, n_bins)
+
+
+# ---------------------------------------------------------------------------
+# In-sphere focal-surface disk (integratingSphereDetectorSweep.C)
+# ---------------------------------------------------------------------------
+
+def insphere_disk_position(theta_deg, phi_deg, radius=200.0,
+                           exit_port_z=-100.0, aimed: bool = False):
+    """Disk placement of ``addDetectorDisk``
+    (``integratingSphereDetectorSweep.C:145-172``): centre at spherical
+    coordinates about the ORIGIN (r = 200 cm, theta from -z); ``theta_deg``
+    and ``phi_deg`` are tensors.
+
+    The normal reproduces the macro's actual rotation: ``rot->RotateZ(
+    rotPhi); rot->RotateY(rotTheta)`` with ROOT's left-multiplying
+    ``TGeoRotation::Rotate*``, so the composed matrix is ``R_y(rotTheta) @
+    R_z(rotPhi)`` and the tube axis lands at ``(sin rotTheta, 0, cos
+    rotTheta)`` with ``rotTheta = -atan2(hypot(dx, dy), dz)``: independent
+    of phi.  The disks are aimed at the port only on the phi = 0 / theta >
+    0 ray of the sweep and tilted everywhere else, and the retained
+    ``detector_sweep*.txt`` corpus was produced with these tilted disks.
+    ``aimed=True`` gives the aim-at-port normal the macro's comment
+    describes."""
+    th = torch.deg2rad(theta_deg)
+    ph = torch.deg2rad(phi_deg)
+    cx = radius * torch.sin(th) * torch.cos(ph)
+    cy = radius * torch.sin(th) * torch.sin(ph)
+    cz = -radius * torch.cos(th)
+    d = Vec3(0.0 - cx, 0.0 - cy, exit_port_z - cz)
+    if aimed:
+        return Vec3(cx, cy, cz), d.normalized()
+    rot_theta = -torch.atan2(torch.sqrt(d.x * d.x + d.y * d.y), d.z)
+    normal = Vec3(torch.sin(rot_theta), torch.zeros_like(rot_theta),
+                  torch.cos(rot_theta))
+    return Vec3(cx, cy, cz), normal
+
+
+def insphere_disk_hit_mask(result: TraceResult, center: Vec3, normal: Vec3,
+                           disk_radius) -> torch.Tensor:
+    """Bool per ray: the final segment hits the focal-surface disk.
+
+    ``center``/``normal`` broadcast against the rays: scalars (0-d tensors
+    or floats) for one disk, per-ray ``[N]`` tensors for a batched sweep, or
+    ``[P, 1]`` tensors for all ``P`` disks at once (a ``[P, N]`` mask).  The
+    disk takes part in the geometry (it absorbs the ray), so unlike the
+    observer test the intersection must lie forward on the final segment
+    (t >= 0).  The disk sits outside the sphere, so it can only intercept
+    port-exiting rays, and the forward segment test equals the reference's
+    node-history scan (``integratingSphereDetectorSweep.C:134-143``)."""
+    p = result.seg_start
+    d = result.direction
+    dot = d.dot(normal)
+    rel = p - center
+    t = -rel.dot(normal) / torch.where(dot == 0, torch.ones_like(dot), dot)
+    hit_pt = p + d.scale(t)
+    r2 = (hit_pt - center).norm2()
+    exited = result.status == EXITED
+    return ((torch.abs(dot) >= PARALLEL_EPS) & (t >= 0)
+            & (r2 <= disk_radius * disk_radius) & exited)
+
+
+def hits_insphere_disk(result: TraceResult, center: Vec3, normal: Vec3,
+                       disk_radius) -> torch.Tensor:
+    """Hit count for one disk position (see ``insphere_disk_hit_mask``)."""
+    return insphere_disk_hit_mask(result, center, normal,
+                                  disk_radius).sum(dtype=torch.int32)
+
+
+def hits_insphere_disks(result: TraceResult, centers: torch.Tensor,
+                        normals: torch.Tensor, disk_radius,
+                        pos_block: int = 32) -> torch.Tensor:
+    """Hit counts ``[P]`` of one traced batch against ``P`` disks given as
+    ``[P, 3]`` tensors: ``hits_insphere_disk`` for every position, as
+    ``[pos_block, N]`` masks (``pos_block`` bounds the working set; the
+    arithmetic per pair is that of the single-disk test)."""
+    counts = []
+    for i in range(0, centers.shape[0], pos_block):
+        c = centers[i:i + pos_block]
+        nn = normals[i:i + pos_block]
+        hit = insphere_disk_hit_mask(
+            result, Vec3(c[:, 0:1], c[:, 1:2], c[:, 2:3]),
+            Vec3(nn[:, 0:1], nn[:, 1:2], nn[:, 2:3]), disk_radius)
+        counts.append(hit.sum(dim=1, dtype=torch.int32))
+    return torch.cat(counts)

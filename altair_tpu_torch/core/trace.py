@@ -1,6 +1,5 @@
 """The bounce step, the eager bounce loop and the deferred-rim post-pass —
-the PyTorch counterpart of ``altair_tpu/core/trace.py`` (history buffers
-not ported).
+the PyTorch counterpart of ``altair_tpu/core/trace.py``.
 
 Random numbers: where the JAX package takes a key, the port takes a CPU
 ``torch.Generator``.  JAX's key splits become ``split``: sub-generators
@@ -38,6 +37,8 @@ class TraceResult(NamedTuple):
     seg_start: Vec3          # second-to-last point (segment start)
     direction: Vec3          # final unit direction
     n_bounces: torch.Tensor  # [N] int32 — wall interactions before death
+    history: torch.Tensor | None = None      # [K, N, 3] optional path points
+    history_len: torch.Tensor | None = None  # [N] int32 number of valid points
 
     def exited_port_mask(self, exit_port_z=-100.0):
         """The reference's exit test: last point z < exitPortZ
@@ -264,10 +265,14 @@ def trace_rays(
     device,
 ) -> TraceResult:
     """Trace ``n_rays`` from ``source`` through ``scene`` to completion with
-    the eager bounce loop (simple or exact-rim physics, by the scene)."""
-    if cfg.keep_history:
-        raise NotImplementedError(
-            "path history (keep_history) is not ported to altair_tpu_torch")
+    the eager bounce loop (simple or exact-rim physics, by the scene).
+
+    ``cfg.keep_history = K`` keeps each ray's first K path points in
+    ``TraceResult.history`` (``[K, N, 3]``, N*K*12 bytes in float32: meant
+    for the few hundred rays of a picture) and their number in
+    ``history_len``: slot 0 is the source point, a point is recorded after
+    each step in which the ray was running, the last slot is overwritten
+    once the buffer is full, and ``history_len`` saturates at K."""
     dtype = cfg.dtype
     pos, direction = _source_rays(source, n_rays, dtype, device)
     zeros = torch.zeros((n_rays,), dtype=torch.int32, device=device)
@@ -276,11 +281,36 @@ def trace_rays(
     block = max(1, min(int(cfg.block_iters), max_iters))
     init = (pos, direction, pos, zeros, zeros,
             torch.zeros((n_rays,), dtype=torch.bool, device=device))
+
+    keep_hist = int(cfg.keep_history)
+    hist = hlen = None
+    if keep_hist:
+        hist = torch.zeros((keep_hist, n_rays, 3), dtype=dtype, device=device)
+        hist[0] = pos.stack()
+        hlen = torch.ones((n_rays,), dtype=torch.int64, device=device)
+        lanes = torch.arange(n_rays, device=device)
+        bare_step = step
+
+        def step(it, carry):
+            nonlocal hlen
+            rec = carry[3] == RUNNING
+            carry = bare_step(it, carry)
+            if it < max_iters:
+                # one masked write a step: running lanes record their new
+                # point at their own slot, the others rewrite what is there
+                slot = torch.clamp(hlen, max=keep_hist - 1)
+                hist[slot, lanes] = torch.where(
+                    rec[:, None], carry[0].stack(), hist[slot, lanes])
+                hlen = torch.where(rec, torch.clamp(hlen + 1, max=keep_hist),
+                                   hlen)
+            return carry
+
     pos, direction, prev, status, bounces, _ = _while_trace(
         step, init, max_iters, block)
     # rays still running after the cap are suspended (ray->Suspend())
     status = torch.where(status == RUNNING, SUSPENDED, status)
-    return TraceResult(status, pos, prev, direction, bounces)
+    return TraceResult(status, pos, prev, direction, bounces, hist,
+                       None if hlen is None else _i32(hlen))
 
 
 # deferred-rim continuations at least this wide wave-compact their tail

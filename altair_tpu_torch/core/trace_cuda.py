@@ -755,11 +755,11 @@ def refill(seed, scene_vec, src_vec, n: int, model, max_bounces: int,
 def _check_simulate(scene: SphereScene, cfg: TraceConfig):
     if not _model_supported(scene):
         raise NotImplementedError(
-            "the kernels implement the four static scatter laws; "
-            "custom scatter callables are not ported to altair_tpu_torch yet")
+            "the kernels implement the four static scatter laws; a custom "
+            "scatter callable runs in the eager tracers (trace_rays_auto)")
     if cfg.keep_history:
         raise NotImplementedError(
-            "path history (keep_history) is not ported to altair_tpu_torch")
+            "the kernels keep no path history; trace_rays does")
     if cfg.dtype != torch.float32:
         raise NotImplementedError("the kernels trace in float32 only")
 
@@ -931,16 +931,14 @@ def trace_rays_fast(
 ) -> tuple[TraceResult, RimOverflow]:
     """The simulate engine: the bounce kernel, or the refill kernel and its
     straggler finish at n >= ``REFILL_MIN``, composed with the deferred rim
-    post-pass for exact-rim scenes.  Scenes the kernels cannot take
-    (float64, a thick rim) run the eager ``trace_rays``, as the JAX
-    function falls back to its XLA kernel.
+    post-pass for exact-rim scenes.  What the kernels cannot take
+    (float64, a thick rim, a scatter callable, path history) runs the
+    eager ``trace_rays``, as the JAX function falls back to its XLA kernel.
 
     Returns ``(TraceResult, RimOverflow)``; ``RimOverflow.total`` counts
     rim-capacity overflow and the rays the refill handoff's continuation
     lost.  The JAX function drops both counts; the port returns them so a
     caller can check them."""
-    if not _model_supported(scene) or cfg.keep_history:
-        _check_simulate(scene, cfg)     # raises: neither is ported
     if not kernel_applicable(scene, cfg):
         return (trace_rays(gen, scene, source, n_rays, cfg, device=device),
                 no_overflow(device))

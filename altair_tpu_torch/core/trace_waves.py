@@ -212,14 +212,17 @@ def trace_rays_auto(
     the rays are traced.  Returns ``(TraceResult, RimOverflow)``: the JAX
     function drops the overflow counts, the port returns them (rim
     capacity, the waves tracer's and the refill handoff's) so a caller can
-    check them.  Path history and custom scatter callables raise
-    ``NotImplementedError``: neither is ported yet.
+    check them.  Path history (``cfg.keep_history``) runs the eager
+    ``trace_rays``, the only tracer with a history buffer; a custom scatter
+    callable is no static law, so it runs the waves or eager tracers.
     """
     if cfg.engine not in ("auto", "simulate", "direct"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
     if cfg.keep_history:
-        raise NotImplementedError(
-            "path history (keep_history) is not ported to altair_tpu_torch")
+        if cfg.engine == "direct":
+            raise ValueError("direct sampling has no path history")
+        return (trace_rays(gen, scene, source, n_rays, cfg, device=device),
+                no_overflow(device))
     if cfg.engine in ("auto", "direct") and direct_applicable(scene, cfg):
         if not scene.exact_rim:
             return (trace_rays_direct(gen, scene, source, n_rays, cfg,
@@ -237,9 +240,6 @@ def trace_rays_auto(
             "rim (if exact_rim) admits the deferred post-pass")
     if kernel_applicable(scene, cfg):
         return trace_rays_fast(gen, scene, source, n_rays, cfg, device=device)
-    if callable(scene.surface_model):
-        raise NotImplementedError(
-            "custom scatter callables are not ported to altair_tpu_torch yet")
     use_waves = n_rays >= waves_threshold and waves_safe(scene)
     shift = rim_deferred_capacity_shift(scene) if scene.exact_rim else None
     if shift is not None:

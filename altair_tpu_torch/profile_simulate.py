@@ -129,20 +129,16 @@ def profiled_run(device, n: int, seed: int) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from .io.profiling import device_busy_s
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall, _ = trace_once(device, n, seed)
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, end = 0, float("-inf")
-    for s, e in spans:
-        if e > end:
-            busy_us += e - max(s, end)
-            end = e
-    busy = busy_us * 1e-6 if spans else None
+    busy = device_busy_s(prof)
     return {"wall_s": wall, "device_busy_s": busy,
-            "device_busy_share": busy / wall if spans else None,
-            "device_activities": len(spans)}
+            "device_busy_share": None if busy is None else busy / wall,
+            "device_activities": sum(e.device_type == DeviceType.CUDA
+                                     for e in prof.events())}
 
 
 def main(argv=None) -> int:

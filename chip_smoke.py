@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Smoke run of altair_tpu_torch on one NVIDIA GPU (the Hopper port of the
-trace-once flux-map path, the simulate engine's large-batch path and the
-retrace flux-map path).
+trace-once flux-map path, the simulate engine's large-batch path, the
+retrace flux-map path and the single-card studies: series, in-sphere disk
+sweep, scatter-retrace, path history and the other CLI subcommands).
 
     python3 chip_smoke.py
 
@@ -26,9 +27,20 @@ retrace path: the Sobol generator against the CPU bit for bit, the
 binomial retrace map at bench size (50,000 rays per position, oversample
 128, the full grid) against a 4M-ray trace-once map, 16 replicate maps,
 ``sweep_detector_retrace`` on 2 theta rows with both engines (the simulate
-one through the refill kernel) and a resume, and the ``fluxmap`` CLI in
-its own process.  Each phase prints one JSON line; any failed check
-raises, so the exit code is not 0.
+one through the refill kernel) and a resume.  Then the studies: the
+port-angle series 163-178 in one call (and 4 members through the bounce
+kernel, and 2 sequential members with their folders), the in-sphere disk
+sweep of the corpus scene over 362 positions (plus a cut retrace, and a
+thin-shell simulate retrace chunk through the refill kernel), the
+scatter-retrace sweep (and once with a MIXED_BRDF wall through the bounce
+kernel), 100 ray paths with history and their HTML view, and the
+``fluxmap``, ``series``, ``insphere``, ``scatter-retrace`` and
+``visualize`` CLI subcommands in their own processes.  The refill kernel is
+held against its plain version at every size a main path launches it with
+(4,194,304 and 1,600,000 rays, the dispatched setting); the other laws and
+the kernel without the handoff at 2^20 and 65,536 rays.  Each phase prints
+one JSON line, with the seconds since the start at which it ended; any
+failed check raises, so the exit code is not 0.
 The last three lines are the card's name and power limit from nvidia-smi,
 the kernel table as JSON, and the ok line.  Exits non-zero without a CUDA
 device.  Imports no JAX.
@@ -53,7 +65,14 @@ MAX_BOUNCES = 4096            # as bench.py: P(alive > 2000 bounces) < 1e-15
 EXIT_WINDOW = (0.4194, 0.4320)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also says when it ended, in
+    seconds since the script began."""
+    if "phase" in obj:
+        obj = {**obj, "ended_at_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -383,21 +402,22 @@ def _refill_against_plain(device, n, model=None, rng="philox",
 
 
 def _refill_laws_against_plain(device, n):
-    """The refill kernel at n rays against ``refill_plain`` for the four
-    laws, with the handoff at ``_REFILL_HANDOFF`` and without it:
-    Lambertian on the production stream (philox), the other three on the
-    hash stream (their plain versions' Philox rounds take longest at this
-    size).  Returns one row per law and setting."""
+    """The refill kernel at n rays against ``refill_plain`` beyond the
+    main shape: Lambertian without the handoff on the production stream
+    (philox), and the other three laws with the handoff at
+    ``_REFILL_HANDOFF`` on the hash stream (their plain versions' Philox
+    rounds take longest at this size).  A plain version costs 1 to 25 s
+    at any size (its cost is warp steps, not width), so the other laws
+    without the handoff are held at 65,536 rays only
+    (``phase_refill_vs_plain``).  Returns one row per law and setting."""
     from altair_tpu_torch import SurfaceModel
 
     rows = {}
     for model in SurfaceModel:
-        rng = "philox" if model == SurfaceModel.LAMBERTIAN else "hash"
-        for handoff in (True, False):
-            if model == SurfaceModel.LAMBERTIAN and handoff:
-                continue            # the main shape: _refill_against_plain
-            rows[f"{model.name}/{rng}/{'handoff' if handoff else 'none'}"] = (
-                _refill_against_plain(device, n, model, rng, handoff)[0])
+        lambertian = model == SurfaceModel.LAMBERTIAN
+        rng, handoff = ("philox", False) if lambertian else ("hash", True)
+        rows[f"{model.name}/{rng}/{'handoff' if handoff else 'none'}"] = (
+            _refill_against_plain(device, n, model, rng, handoff)[0])
     return rows
 
 
@@ -406,9 +426,9 @@ def phase_refill_timing(device, sizes=(1 << 20, N_SCALE)):
     (production scene without the rim, philox, 4096 cap, budget 4,
     handoff 0.01; n = N_SCALE is the main path's own launch) against its
     plain version once at each n (per-slot agreement, live planes and
-    time), the four laws with and without the handoff against theirs,
-    the kernel without the handoff, the bounce kernel at the same n, and
-    the stragglers' finish in the waves tracer.  Each row records the
+    time), at the first size also without the handoff and the other three
+    laws against theirs, the kernel without the handoff, the bounce kernel
+    at the same n, and the stragglers' finish in the waves tracer.  Each row records the
     bounce steps the kernel ran and the bytes it wrote, for its bound.
     The lane-static kernel this one replaced is not timed here; its times
     are those of the earlier calls recorded in PERF.md."""
@@ -431,7 +451,8 @@ def phase_refill_timing(device, sizes=(1 << 20, N_SCALE)):
         check(int(pending.max()) <= thresh,
               f"refill n={n}: a unit left {int(pending.max())} rays > "
               f"{thresh}")
-        row["laws"] = _refill_laws_against_plain(device, n)
+        if n == sizes[0]:
+            row["laws"] = _refill_laws_against_plain(device, n)
         row["refill_no_handoff_ms"] = cuda_ms(lambda: trace_cuda.refill(
             *args, budget, 0, rng="philox"))
         row["bounce_ms"] = cuda_ms(lambda: trace_cuda.bounce(
@@ -735,8 +756,7 @@ def phase_retrace_rows(device, binom_cells, save_folder, n_per_pos=50_000,
     refill kernel; its launches and their sizes counted from 0 over that
     run, then the kernel held against its plain version at each size),
     both writing the CSV; the simulate sweep then resumes from a one-row
-    partial CSV
-    and must redo the second row exactly.  Rows against each other and
+    partial CSV and must redo the second row exactly.  Rows against each other and
     against the binomial map within 5 sigma per cell.  Then one chunk's
     trace (32 positions x 50,000 rays) per engine, split into the main
     trace and the rim post-pass, each stage ended by a device sync."""
@@ -777,7 +797,6 @@ def phase_retrace_rows(device, binom_cells, save_folder, n_per_pos=50_000,
     vs_plain = out["simulate"]["refill_vs_plain"] = {}
     for n in out["simulate"]["refill_sizes"]:
         vs_plain[str(n)] = _refill_against_plain(device, n)[0]
-        vs_plain[str(n)]["laws"] = _refill_laws_against_plain(device, n)
 
     # resume the simulate sweep from its own first row
     with open(out["simulate"]["csv"]) as fh:
@@ -842,11 +861,347 @@ def phase_retrace_rows(device, binom_cells, save_folder, n_per_pos=50_000,
     return out
 
 
+def phase_series(device, save_folder, n=N_HEADLINE, seed=1100):
+    """``run_series_vmapped`` over the port angles 163-178 of
+    ``sweepSeries`` (16 members, n rays each, the full grid, the direct
+    engine): on the simple-rim scene each member's exit fraction within 4
+    sigma of the closed-form law of its port; on the production scene
+    (exact rim) below the law by at most the rim band's share of the
+    escapes, and falling with the port angle.  Then 4 members through the simulate engine (the
+    bounce kernel's launches counted from 0), and 2 sequential members
+    that write their CSVs under the reference's folder names."""
+    from altair_tpu_torch import (SCENE_OPTIMIZE, SOURCE_OVERNIGHT,
+                                  TraceConfig)
+    from altair_tpu_torch.config import expected_exit_fraction
+    from altair_tpu_torch.core import trace_cuda
+    from altair_tpu_torch.sweep import (run_series, run_series_vmapped,
+                                        series_folder)
+
+    scene = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES)
+    ports = [float(p) for p in range(163, 179)]
+    law = [expected_exit_fraction(p, scene.reflectance) for p in ports]
+    out = {"phase": "series", "n_rays": n, "ports": ports, "law": law}
+    for name, sc in (("simple_rim", scene.with_(exact_rim=False)),
+                     ("exact_rim", scene)):
+        sync(device)
+        t0 = time.perf_counter()
+        counts, exits = run_series_vmapped(sc, SOURCE_OVERNIGHT,
+                                           device=device, port_angles=ports,
+                                           n_rays=n, seed=seed)
+        wall = time.perf_counter() - t0
+        frac = (exits / n).tolist()
+        check(counts.shape == (16, 180, 90), f"series {name}: map shape")
+        for p, f, l in zip(ports, frac, law):
+            sigma = math.sqrt(l * (1 - l) / n)
+            # the rim clips at most its band's share of the escapes (the
+            # rule rim_deferred_capacity_shift plans by)
+            band = ((sc.outer_radius - sc.inner_radius) / (
+                sc.inner_radius * math.sin(math.radians(180.0 - p)))
+                if sc.exact_rim else 0.0)
+            lo = l * (1 - min(1.0, band)) - 4 * sigma
+            check(lo < f < l + 4 * sigma,
+                  f"series {name} port {p}: exit fraction {f} vs law {l}")
+        check(all(a > b for a, b in zip(frac, frac[1:])),
+              f"series {name}: exit fractions do not fall with the port")
+        out[name] = {"wall_s": wall, "per_member_s": wall / 16,
+                     "exit_fraction": frac,
+                     "map_totals": counts.sum(axis=(1, 2)).tolist()}
+
+    sim_ports = [164.0, 168.0, 172.0, 176.0]
+    trace_cuda.reset_launch_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    counts, exits = run_series_vmapped(scene, SOURCE_OVERNIGHT, device=device,
+                                       port_angles=sim_ports, n_rays=n,
+                                       seed=seed + 1,
+                                       cfg=TraceConfig(engine="simulate"))
+    wall = time.perf_counter() - t0
+    launches = dict(trace_cuda.launch_counts)
+    check(launches["bounce"] >= len(sim_ports),
+          f"series simulate: bounce launches {launches}")
+    for p, e in zip(sim_ports, exits):
+        f_direct = out["exact_rim"]["exit_fraction"][ports.index(p)]
+        check(abs(e / n - f_direct)
+              < 4 * math.sqrt(2 * f_direct * (1 - f_direct) / n),
+              f"series simulate port {p}: {e / n} vs direct {f_direct}")
+    out["simulate"] = {"ports": sim_ports, "wall_s": wall,
+                       "exit_fraction": (exits / n).tolist(),
+                       "launches": launches,
+                       "bounce_sizes": sorted(
+                           trace_cuda.launch_sizes["bounce"])}
+
+    root = os.path.join(save_folder, "series")
+    res = run_series(scene, SOURCE_OVERNIGHT, device=device,
+                     port_angles=[164.0, 170.0], repeats=1, n_rays=n,
+                     save_root=root, seed=seed + 2, verbose=False)
+    want = [os.path.join(root, series_folder("portAngleSweep",
+                                             SOURCE_OVERNIGHT, p))
+            for p in (164, 170)]
+    check([os.path.dirname(r.path) for r in res] == want,
+          f"series: folders {[r.path for r in res]}")
+    check(all(os.path.getsize(r.path) > 100_000 for r in res),
+          "series: a CSV is short")
+    out["sequential"] = {"csv": [r.path for r in res],
+                         "total_s": [r.total_time_s for r in res]}
+    return out
+
+
+def _sigma_apart(a, b, n_a, n_b):
+    """Per position, the distance of two hit fractions in standard
+    deviations of their difference (pooled, floored at one hit)."""
+    import numpy as np
+
+    pi = np.maximum((a * n_a + b * n_b) / (n_a + n_b), 1.0 / max(n_a, n_b))
+    return np.abs(a - b) / np.sqrt(pi * (1 - pi) * (1 / n_a + 1 / n_b))
+
+
+def phase_insphere(device, n=N_HEADLINE, seed=1200):
+    """``sweep_insphere_detector`` as the macro runs it: the corpus scene
+    (outer radius 105 cm, a thick rim: the in-loop exact-rim tracers), the
+    macro's source, n rays, dtheta 0.5 over +-45 degrees x phi {0, 180} =
+    362 positions, traced once; the phi-averaged profile peaks within 6
+    degrees of the axis, as the corpus does.  Then the reference's
+    methodology at a cut depth: fresh rays for 16 positions, within 5
+    sigma per position of the trace-once fractions.  Then a thin-shell
+    scene through the simulate engine, 16 positions in one chunk of 16 x n
+    rays: at n = 100,000 that is the refill kernel's size, its launches
+    counted from 0."""
+    import numpy as np
+
+    from altair_tpu_torch import (SCENE_INSPHERE, SCENE_OPTIMIZE, SOURCE_DEMO,
+                                  TraceConfig)
+    from altair_tpu_torch.core import trace_cuda
+    from altair_tpu_torch.sweep import (read_detector_sweep,
+                                        sweep_insphere_detector)
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke", "detector_sweep3.txt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    once = sweep_insphere_detector(SCENE_INSPHERE, SOURCE_DEMO, device=device,
+                                   n_rays=n, seed=seed, save_path=path)
+    th, ph, fr = read_detector_sweep(path)
+    check(len(fr) == 362 and set(ph) == {0.0, 180.0},
+          f"insphere: {len(fr)} rows")
+    check(np.allclose(fr, once.fractions, rtol=1e-5, atol=1e-9),
+          "insphere: the file's fractions differ from the result's")
+    thetas = np.unique(once.thetas)
+    prof = np.array([once.fractions[once.thetas == t].mean() for t in thetas])
+    smooth = np.convolve(prof, np.ones(9) / 9, mode="same")
+    peak = float(thetas[smooth.argmax()])
+    check(abs(peak) <= 6.0, f"insphere: profile peaks at theta {peak}")
+    check(prof.max() > 4 * max(prof[0], prof[-1], 1.0 / n),
+          "insphere: the profile does not fall off towards +-45 degrees")
+    out = {"phase": "insphere", "n_rays": n, "positions": len(fr),
+           "trace_once_s": once.wall_time_s, "peak_theta": peak,
+           "peak_fraction": float(prof.max()),
+           "total_fraction": float(once.fractions.sum()), "file": path}
+
+    re = sweep_insphere_detector(SCENE_INSPHERE, SOURCE_DEMO, device=device,
+                                 n_rays=n, dtheta=1.0, theta_max=3.5,
+                                 seed=seed + 1, retrace=True, save_path=None)
+    check(len(re.fractions) == 16, f"insphere retrace: {len(re.fractions)}")
+    ref = np.array([once.fractions[(once.thetas == t) & (once.phis == p)][0]
+                    for t, p in zip(re.thetas, re.phis)])
+    z = _sigma_apart(re.fractions, ref, n, n)
+    check(z.max() < 5, f"insphere retrace: {z.max()} sigma from trace-once")
+    out["retrace"] = {"positions": 16, "wall_s": re.wall_time_s,
+                      "per_position_s": re.wall_time_s / 16,
+                      "max_sigma": float(z.max()),
+                      "fractions": re.fractions.tolist()}
+
+    thin = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES)
+    kw = dict(device=device, n_rays=n, dtheta=1.0, theta_max=3.5,
+              save_path=None)
+    direct = sweep_insphere_detector(thin, SOURCE_DEMO, seed=seed + 2, **kw)
+    trace_cuda.reset_launch_counts()
+    sim = sweep_insphere_detector(thin, SOURCE_DEMO, seed=seed + 3,
+                                  retrace=True, pos_chunk=16,
+                                  cfg=TraceConfig(engine="simulate"), **kw)
+    launches = dict(trace_cuda.launch_counts)
+    sizes = sorted(trace_cuda.launch_sizes["refill"])
+    if 16 * n >= trace_cuda.REFILL_MIN:
+        check(launches["refill"] > 0,
+              f"insphere simulate chunk: launches {launches}")
+    z = _sigma_apart(sim.fractions, direct.fractions, n, n)
+    check(z.max() < 5, f"insphere simulate chunk: {z.max()} sigma")
+    out["simulate_chunk"] = {"rays": 16 * n, "wall_s": sim.wall_time_s,
+                             "launches": launches, "refill_sizes": sizes,
+                             "max_sigma": float(z.max()),
+                             "direct_trace_once_s": direct.wall_time_s}
+    return out
+
+
+def phase_scatter_retrace(device, n=N_HEADLINE, seed=1300):
+    """``sweep_scatter_retrace`` as the CLI runs it: the production scene
+    with the BRDF 0.4 / 0.6 / 0.3, n rays, the 45x20 grid with the 10 cm
+    detector.  Every scattered ray ends EXITED, ABSORBED or SUSPENDED; the
+    map total of two seeds within 4 sigma.  Then a MIXED_BRDF wall, so
+    that stage 1 is the simulate engine: the bounce kernel's launches are
+    counted from 0, and the kernel is held against its plain version on
+    that law at that size."""
+    from altair_tpu_torch import (SCENE_OPTIMIZE, SOURCE_OVERNIGHT,
+                                  DetectorGrid, SurfaceModel)
+    from altair_tpu_torch.core import trace_cuda
+    from altair_tpu_torch.core.score import fluxmap_trace_once
+    from altair_tpu_torch.sweep import (sweep_scatter_retrace,
+                                        trace_scatter_retrace)
+
+    scene = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES, specular_prob=0.4,
+                                 diffuse_prob=0.6, brdf_roughness=0.3)
+    grid = DetectorGrid(n_theta=45, n_phi=20, width=10.0, height=10.0)
+    out = {"phase": "scatter_retrace", "n_rays": n, "grid": [45, 20]}
+    totals, walls = [], []
+    for i in range(2):
+        sw = sweep_scatter_retrace(scene, SOURCE_OVERNIGHT, device=device,
+                                   n_rays=n, seed=seed + i)
+        check(sw.fluxmap.shape == (45, 20), "scatter_retrace: map shape")
+        totals.append(float(sw.fluxmap.sum()) * n)
+        walls.append(sw.wall_time_s)
+    sync(device)
+    t0 = time.perf_counter()
+    res, ovf = trace_scatter_retrace(torch.Generator().manual_seed(seed),
+                                     scene, SOURCE_OVERNIGHT, n, device=device)
+    status = torch.bincount(res.status, minlength=4).tolist()
+    trace_s = time.perf_counter() - t0
+    check(int(ovf) == 0, f"scatter_retrace: overflow {int(ovf)}")
+    check(status[0] == 0 and sum(status[1:4]) == n,
+          f"scatter_retrace: statuses {status}")
+    counts = fluxmap_trace_once(res, grid, scene.exit_port_z)
+    h_total, sigma = _hits_per_ray(res, grid, scene.exit_port_z)
+    check(abs(int(counts.sum()) - totals[0]) < 0.5,
+          "scatter_retrace: the sweep's map is not its trace's map")
+    check(abs(h_total - totals[0]) <= 1e-4 * totals[0] + 10,
+          f"scatter_retrace: scorer total {totals[0]} vs direct {h_total}")
+    check(abs(totals[0] - totals[1]) < 4 * math.sqrt(2) * sigma,
+          f"scatter_retrace: map totals {totals} (sigma {sigma})")
+    out.update(wall_s=walls, trace_s=trace_s, map_totals=totals,
+               map_total_sigma=sigma,
+               status_counts={"exited": status[1], "absorbed": status[2],
+                              "suspended": status[3]})
+
+    mixed = scene.with_(surface_model=SurfaceModel.MIXED_BRDF)
+    trace_cuda.reset_launch_counts()
+    sw = sweep_scatter_retrace(mixed, SOURCE_OVERNIGHT, device=device,
+                               n_rays=n, seed=seed + 2)
+    launches = dict(trace_cuda.launch_counts)
+    check(launches["bounce"] > 0,
+          f"scatter_retrace mixed: stage 1 launched {launches}")
+    check(n in trace_cuda.launch_sizes["bounce"],
+          "scatter_retrace mixed: the bounce kernel's size")
+    sv, srcv = trace_cuda.kernel_operands(mixed.with_(exact_rim=False),
+                                          SOURCE_OVERNIGHT, device)
+    args = ((9, 10), sv, srcv, n, int(SurfaceModel.MIXED_BRDF), MAX_BOUNCES)
+    k = trace_cuda.bounce(*args, rng="philox")
+    sync(device)
+    agree, err = compare(k, trace_cuda.bounce_plain(*args, rng="philox"))
+    check(agree >= 0.999 and err <= 1e-3,
+          f"bounce kernel vs plain, MIXED_BRDF at {n}: {agree}, {err} cm")
+    out["mixed_wall"] = {"wall_s": sw.wall_time_s, "launches": launches,
+                         "map_total": float(sw.fluxmap.sum()) * n,
+                         "kernel_vs_plain": {"agree": agree,
+                                             "max_abs_err_cm": err}}
+    return out
+
+
+def phase_history(device, out_dir, n=100, K=256, seed=1400):
+    """``viz.trace_paths``: n rays with ``keep_history = K`` on the card.
+    Slot 0 is the source; a ray with room left in its buffer ends on its
+    last point (held against the same trace's ``last_point``: an exit's
+    on the world box, any other within the shell); every point between
+    lies on the inner sphere within 1e-3 cm or on the rim band; the census
+    sums to n; ``export_html`` writes the viewer; ``io.device_trace``
+    writes the chrome trace of the loop's first 64 steps and gives their
+    device busy share."""
+    import numpy as np
+
+    from altair_tpu_torch import (SCENE_OPTIMIZE, SOURCE_OVERNIGHT,
+                                  TraceConfig, trace_rays)
+    from altair_tpu_torch.viz import export_html, trace_paths
+
+    scene = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES)
+    sync(device)
+    t0 = time.perf_counter()
+    paths = trace_paths(scene, SOURCE_OVERNIGHT, device=device, n_rays=n,
+                        seed=seed, keep_history=K)
+    wall = time.perf_counter() - t0
+    pts, lens = paths.points, paths.lengths
+    check(pts.shape == (K, n, 3) and lens.shape == (n,), "history: shapes")
+    src = np.float32([SOURCE_OVERNIGHT.x, SOURCE_OVERNIGHT.y,
+                      SOURCE_OVERNIGHT.z])
+    check(bool((pts[0] == src).all()), "history: slot 0 is not the source")
+    check(int(lens.min()) >= 2 and int(lens.max()) <= K, "history: lengths")
+    room = lens < K
+    last = pts[lens - 1, np.arange(n)]
+    exits = np.isin(paths.classes, ("hit", "exit"))
+    check(bool(room.any()), "history: every buffer is full")
+    # the same key gives the same trace: its last points and its buffer
+    res = trace_rays(torch.Generator().manual_seed(seed), scene,
+                     SOURCE_OVERNIGHT, n, TraceConfig(keep_history=K),
+                     device=device)
+    check(np.array_equal(res.history.cpu().numpy(), pts)
+          and np.array_equal(res.history_len.cpu().numpy(), lens),
+          "history: trace_paths does not carry trace_rays' buffer")
+    check(np.array_equal(last[room],
+                         res.last_point.stack().cpu().numpy()[room]),
+          "history: a ray's last recorded point is not its last point")
+    # an exit's last point is on the world box, anything else ends on the
+    # wall or the rim
+    r_last = np.linalg.norm(last, axis=1)
+    box = np.abs(last).max(axis=1)
+    check(bool(np.all(np.abs(box[room & exits] - scene.world_half) < 1e-2)),
+          "history: an exit's last point is not on the world box")
+    check(bool(np.all(r_last[room & ~exits] < scene.outer_radius + 1e-3)),
+          "history: a stopped ray's last point is outside the shell")
+    slot = np.arange(K)[:, None]
+    interior = (slot >= 1) & (slot < (lens - 1)[None, :])
+    r = np.linalg.norm(pts, axis=2)[interior]
+    on_wall = np.abs(r - scene.inner_radius) < 1e-3
+    on_rim = (r > scene.inner_radius - 1e-3) & (r < scene.outer_radius + 1e-3)
+    check(bool((on_wall | on_rim).all()),
+          "history: a path point off the wall and the rim")
+    check(sum(paths.census.values()) == n, f"history: census {paths.census}")
+    os.makedirs(out_dir, exist_ok=True)
+    html = export_html(paths, scene, os.path.join(out_dir, "rays.html"))
+    check(os.path.getsize(html) > 10_000, "history: the HTML view is short")
+
+    # the first 64 steps of the same trace once more (warm) under
+    # io.profiling's device trace: the chrome trace is written and the
+    # card's busy share of this eager loop read from it (the profiler's
+    # own time to write and parse its events grows with the steps traced)
+    from altair_tpu_torch.io import annotate, device_busy_s, device_trace
+
+    with device_trace(os.path.join(out_dir, "trace")) as log_dir:
+        sync(device)
+        t0 = time.perf_counter()
+        with annotate("history_trace"):
+            trace_paths(scene.with_(max_bounces=64), SOURCE_OVERNIGHT,
+                        device=device, n_rays=n, seed=seed, keep_history=K)
+            sync(device)
+        warm_wall = time.perf_counter() - t0
+    busy = device_busy_s(device_trace.last)
+    check(os.path.getsize(os.path.join(log_dir, "trace.json")) > 10_000,
+          "history: the device trace is short")
+    check(busy is not None and 0 < busy < warm_wall,
+          f"history: the profiler saw {busy} s of device activity")
+    return {"phase": "history", "n_rays": n, "keep_history": K,
+            "history_bytes": int(pts.nbytes), "wall_s": wall,
+            "profiled_steps": 64, "warm_wall_s": warm_wall,
+            "device_busy_s": busy,
+            "device_busy_share": busy / warm_wall,
+            "census": paths.census, "full_buffers": int((~room).sum()),
+            "mean_length": float(lens.mean()),
+            "points_on_wall": float(on_wall.mean()), "html": html,
+            "html_bytes": os.path.getsize(html)}
+
+
 def phase_cli(device, out_dir):
     """The CLI as a user runs it: ``python -m altair_tpu_torch.cli fluxmap
     --method retrace --retrace-engine binomial --rays 5000 --oversample
     16`` on the card, in its own process; it must exit 0 and write the
-    full map's CSV."""
+    full map's CSV.  Then ``series --vmapped``, ``insphere``,
+    ``scatter-retrace`` and ``visualize`` (HTML) at small sizes, one
+    process each, started together; each must exit 0 and write its
+    file."""
     import shutil
 
     from altair_tpu_torch.io import read_fluxmap
@@ -868,10 +1223,50 @@ def phase_cli(device, out_dir):
     check(len(csvs) == 1, f"cli wrote {csvs}")
     _, _, frac, meta = read_fluxmap(os.path.join(out_dir, csvs[0]))
     check(len(frac) == 16_200, f"cli CSV rows {len(frac)}")
-    return {"phase": "cli", "cmd": " ".join(cmd[1:]), "wall_s": wall,
-            "csv": csvs[0], "rows": len(frac),
-            "total_hits": meta.get("Total ray hits"),
-            "stdout_tail": p.stdout.strip().splitlines()[-1:]}
+    out = {"phase": "cli", "cmd": " ".join(cmd[1:]), "wall_s": wall,
+           "csv": csvs[0], "rows": len(frac),
+           "total_hits": meta.get("Total ray hits"),
+           "stdout_tail": p.stdout.strip().splitlines()[-1:]}
+
+    others = {
+        "series": (["series", "--vmapped", "--rays", "20000",
+                    "--port-angles", "164", "170", "--out", out_dir],
+                   "series_fluxmaps.npy"),
+        "insphere": (["insphere", "--rays", "20000", "--dtheta", "5",
+                      "--out-file", os.path.join(out_dir, "sweep.txt")],
+                     "sweep.txt"),
+        "scatter-retrace": (["scatter-retrace", "--rays", "20000",
+                             "--out-file",
+                             os.path.join(out_dir, "fluxmap_data.csv")],
+                            "fluxmap_data.csv"),
+        "visualize": (["visualize", "--rays", "50", "--out-file",
+                       os.path.join(out_dir, "rays.html")], "rays.html"),
+    }
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "altair_tpu_torch.cli"] + args
+        + ["--device", str(device), "--max-bounces", str(MAX_BOUNCES)],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for name, (args, _) in others.items()}
+    done = {}
+    try:
+        for name, proc in procs.items():
+            done[name] = proc.communicate(timeout=300) + (proc.returncode,)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["others_wall_s"] = time.perf_counter() - t0
+    for name, (stdout, stderr, rc) in done.items():
+        check(rc == 0, f"cli {name} exited {rc}: {stderr[-2000:]}")
+        path = os.path.join(out_dir, others[name][1])
+        check(os.path.exists(path) and os.path.getsize(path) > 0,
+              f"cli {name} wrote no {path}")
+        out[name] = {"file": others[name][1],
+                     "bytes": os.path.getsize(path),
+                     "stdout_tail": stdout.strip().splitlines()[-1:]}
+    return out
 
 
 def main() -> int:
@@ -957,13 +1352,38 @@ def main() -> int:
     rows_out = phase_retrace_rows(device, binom_cells,
                                   os.path.join(save, "retrace_rows"))
     emit(rows_out)
+
+    # the single-card studies; each phase that runs a kernel path sets the
+    # counts to 0 just before it and reads them just after
+    series = phase_series(device, save)
+    emit(series)
+    insphere = phase_insphere(device)
+    emit(insphere)
+    scatter = phase_scatter_retrace(device)
+    emit(scatter)
+    emit(phase_history(device, os.path.join(save, "history")))
     emit(phase_cli(device, os.path.join(save, "cli")))
+    path_launches = {
+        "bounce": {"headline_simulate": launches,
+                   "series_simulate": series["simulate"]["launches"]["bounce"],
+                   "scatter_retrace_mixed":
+                       scatter["mixed_wall"]["launches"]["bounce"]},
+        "refill": {"scale_simulate": scale["simulate"]["launches"]["refill"],
+                   "retrace_rows_simulate":
+                       rows_out["simulate"]["launches"]["refill"],
+                   "insphere_simulate_chunk":
+                       insphere["simulate_chunk"]["launches"]["refill"]},
+    }
+    for name, by_path in path_launches.items():
+        for path, count in by_path.items():
+            check(count > 0, f"{path} never launched the {name} kernel")
 
     # the refill row's times are at the main path's shape (N_SCALE rays);
     # each bound from this run's steps and bytes at that shape
     r_main = refill_timing[str(N_SCALE)]
     refill_err = max(_errors(refill_hash) + _errors(refill_timing)
                      + _errors(rows_out["simulate"]["refill_vs_plain"]))
+    bounce_err = max([timing["max_abs_err_cm"]] + _errors(scatter))
     bounds = {
         "bounce": kernel_bound(mix["bounce"], crd, timing["traced_steps"],
                                timing["bytes"], timing["chain_ms"]),
@@ -976,13 +1396,15 @@ def main() -> int:
                     "refill": bounds["refill"]["bound_ms"]
                     / r_main["refill_ms"]}})
     rows = {
-        "bounce": (launches, timing["max_abs_err_cm"], timing["kernel_ms"],
-                   timing["plain_ms"]),
-        "refill": (scale["simulate"]["launches"]["refill"], refill_err,
+        "bounce": (sum(path_launches["bounce"].values()), bounce_err,
+                   timing["kernel_ms"], timing["plain_ms"]),
+        "refill": (sum(path_launches["refill"].values()), refill_err,
                    r_main["refill_ms"], r_main["plain_ms"]),
     }
+    emit({"phase": "launches_by_path", **path_launches})
     print(smi)
-    # no single PyTorch call computes either kernel's function:
+    # launches: the sum over the main paths' runs, each counted from 0;
+    # no single PyTorch call computes either kernel's function, so
     # library_ms is null
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": trace_cuda.KERNELS[name][0],

@@ -95,7 +95,13 @@ def test_scatter_law_mean_cosine(model):
 
 
 def test_custom_scatter_callable_not_ported():
+    """The custom scatter callable is ported now (the name is kept): the
+    hook is called as the JAX one, ``(generator, incident, normal, scene)``,
+    and its return value is the scattered direction."""
     z = torch.zeros(4)
     v = tgeo.Vec3(z, z, z + 1)
-    with pytest.raises(NotImplementedError):
-        tsampling.scatter(torch.Generator(), lambda *a: a[1], v, v, None)
+    w = tgeo.Vec3(z + 1, z, z)
+    assert tsampling.scatter(torch.Generator(), lambda *a: a[1], v, w,
+                             None) is v
+    assert tsampling.scatter(torch.Generator(), lambda *a: a[2], v, w,
+                             None) is w

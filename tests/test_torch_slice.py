@@ -182,23 +182,48 @@ def test_csv_header_matches_jax(tmp_path):
 
 
 def test_unported_branches_raise():
-    """Path history is not ported; engine="direct" has no closed form for
-    a non-Lambertian wall (in the JAX package too)."""
+    """What still raises, as in the JAX package: engine="direct" has no
+    closed form for a non-Lambertian wall, and no path history."""
     s = convert.scene(SCENE)
     so = convert.source(SOURCE_OVERNIGHT)
     g = torch.Generator()
-    for cfg, scene in ((T.TraceConfig(keep_history=4), s),
-                       (T.TraceConfig(engine="direct"),
-                        s.with_(surface_model=T.SurfaceModel.MIXED_BRDF))):
-        with pytest.raises(NotImplementedError):
-            T.trace_rays_auto(g, scene, so, 64, cfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        T.trace_rays_auto(g, s.with_(surface_model=T.SurfaceModel.MIXED_BRDF),
+                          so, 64, T.TraceConfig(engine="direct"),
+                          device="cpu")
+    with pytest.raises(ValueError):
+        T.trace_rays_auto(g, s, so, 64,
+                          T.TraceConfig(engine="direct", keep_history=4),
+                          device="cpu")
+
+
+def test_history_and_callable_run_through_auto():
+    """Path history and a custom scatter callable both run through
+    ``trace_rays_auto`` (the eager tracers), with every ray finished."""
+    from altair_tpu_torch.core.sampling import cosine_hemisphere
+
+    s = convert.scene(SCENE)
+    so = convert.source(SOURCE_OVERNIGHT)
+    g = torch.Generator().manual_seed(1)
+    res, ovf = T.trace_rays_auto(g, s, so, 256, T.TraceConfig(keep_history=4),
+                                 device="cpu")
+    assert res.history.shape == (4, 256, 3) and int(ovf) == 0
+    assert int(res.history_len.min()) >= 2
+    hook = s.with_(surface_model=lambda gen, inc, n, sc:
+                   cosine_hemisphere(gen, n))
+    res, ovf = T.trace_rays_auto(g, hook, so, 256, device="cpu")
+    assert int(ovf) == 0 and res.history is None
+    assert set(res.status.unique().tolist()) <= {1, 2, 3}
+    assert 0.25 < (res.status == 1).float().mean() < 0.6
 
 
 def test_package_imports_no_jax():
     code = ("import sys, altair_tpu_torch, altair_tpu_torch.sweep, "
             "altair_tpu_torch.convert, altair_tpu_torch.core.trace_cuda, "
             "altair_tpu_torch.core.qmc, altair_tpu_torch.core.score, "
-            "altair_tpu_torch.cli; "
+            "altair_tpu_torch.cli, altair_tpu_torch.viz, "
+            "altair_tpu_torch.analysis, altair_tpu_torch.native, "
+            "altair_tpu_torch.io.profiling; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'altair_tpu.'))  or m == 'altair_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
