@@ -3,7 +3,7 @@ CUDA (NVIDIA Hopper).
 
 A port of ``altair_tpu`` (JAX), which stays the reference it is tested
 against.  This package imports torch and never JAX.  Ported: everything
-the JAX package does on one device —
+the JAX package does —
 
 * the trace-once flux-map path: the direct and simulate engines of
   ``trace_rays_auto``, the deferred rim post-pass, the trace-once scorer
@@ -19,11 +19,12 @@ the JAX package does on one device —
   ASCII views (``viz``), the flux-map analysis and the closed-form
   finite-port models (``analysis``), the ``torch.profiler`` wrappers
   (``io.profiling``), the native CPU tier's binding (``native``), and all
-  seven CLI subcommands (``python -m altair_tpu_torch.cli``).
+  seven CLI subcommands (``python -m altair_tpu_torch.cli``);
+* the multi-device layer (``parallel``): SPMD over ``torch.distributed``,
+  one process a device, every ``sharded_*`` route, ``mesh=`` on the sweeps
+  and ``--mesh`` on the CLI under ``torchrun``.
 
-Not ported: the multi-device layer (``altair_tpu/parallel``, ``--mesh``,
-the sweeps' ``mesh=``) and ``core/memo.py`` (eager torch has no compile
-to memoize).
+Not ported: ``core/memo.py`` (eager torch has no compile to memoize).
 """
 
 from .config import (  # noqa: F401

@@ -1,6 +1,6 @@
 """Command-line interface of the PyTorch port — the subcommands of
-``altair_tpu/cli.py``, with the same arguments and defaults (no ``--mesh``),
-plus ``--device``:
+``altair_tpu/cli.py``, with the same arguments and defaults, plus
+``--device``:
 
   altair-tpu-torch fluxmap         <- sweepDetectorTraceOnce / sweepDetector
   altair-tpu-torch series          <- sweepSeries (port-angle / repeat series)
@@ -14,6 +14,12 @@ plus ``--device``:
 
 ``--device`` defaults to ``cuda``; without a visible CUDA device that is
 an error, not a fall-back to the CPU (pass ``--device cpu``).
+
+``--mesh`` (``fluxmap``, ``distribution``, ``insphere``,
+``scatter-retrace``) splits the rays over the processes ``torchrun``
+started, one device each; rank 0 prints and writes the files:
+
+    torchrun --nproc-per-node=4 -m altair_tpu_torch.cli fluxmap --mesh
 """
 
 from __future__ import annotations
@@ -67,6 +73,35 @@ def _device(args):
     return dev
 
 
+def _add_mesh_arg(p: argparse.ArgumentParser):
+    p.add_argument("--mesh", action="store_true",
+                   help="split the ray axis over the processes torchrun "
+                        "started, one device each (parallel.make_mesh); "
+                        "runs without it are unaffected")
+
+
+def _device_mesh(args):
+    """``(device, mesh)``: ``--device`` and, with ``--mesh``, this process's
+    handle on the process group of the ``torchrun`` environment (else
+    None).  Under ``--mesh`` with ``--device cuda`` the device is the card
+    ``LOCAL_RANK``."""
+    import os
+
+    device = _device(args)
+    if not getattr(args, "mesh", False):
+        return device, None
+    if "RANK" not in os.environ:
+        raise SystemExit(
+            "--mesh: no RANK in the environment; start one process per "
+            "device with torchrun, e.g.\n  torchrun --nproc-per-node=N -m "
+            f"altair_tpu_torch.cli {args.cmd} --mesh ...")
+    from .parallel import init_distributed, make_mesh
+
+    init_distributed(device=device)
+    mesh = make_mesh(device)
+    return mesh.device, mesh
+
+
 def _scene_source(args):
     from .config import SphereScene, Source, SurfaceModel
 
@@ -85,10 +120,10 @@ def _scene_source(args):
 
 def cmd_fluxmap(args):
     from .config import DetectorGrid
+    from .parallel.mesh import is_rank0
     from .sweep import (fluxmap_replicates, sweep_detector_retrace,
                         sweep_detector_trace_once, write_fluxmap_csv)
 
-    device = _device(args)
     scene, source = _scene_source(args)
     cfg = _cfg(args)
     grid = DetectorGrid(n_theta=args.theta_bins, n_phi=args.phi_bins,
@@ -96,6 +131,9 @@ def cmd_fluxmap(args):
     if args.replicates > 1:
         if args.method != "trace-once":
             raise SystemExit("--replicates applies to --method trace-once")
+        if args.mesh:
+            raise SystemExit("--replicates runs on one device: drop --mesh")
+        device = _device(args)
         import numpy as np
 
         mean, sem = fluxmap_replicates(
@@ -112,28 +150,34 @@ def cmd_fluxmap(args):
                                      trace_once=True)
             print(f"mean flux map saved to '{path}'")
         return 0
+    device, mesh = _device_mesh(args)
     if args.method == "trace-once":
         res = sweep_detector_trace_once(
             scene, source, device=device, n_rays=args.rays, grid=grid,
             seed=args.seed, cfg=cfg, save_folder=args.out,
-            notify=args.notify)
+            notify=args.notify, mesh=mesh)
     else:
         res = sweep_detector_retrace(
             scene, source, device=device, n_rays_per_pos=args.rays,
             grid=grid, seed=args.seed, cfg=cfg, save_folder=args.out,
             notify=args.notify, resume_path=args.resume,
-            engine=args.retrace_engine, oversample=args.oversample)
-    print(f"total {res.total_time_s:.3f}s  trace {res.trace_time_s:.3f}s")
+            engine=args.retrace_engine, oversample=args.oversample,
+            mesh=mesh)
+    if is_rank0(mesh):
+        print(f"total {res.total_time_s:.3f}s  trace {res.trace_time_s:.3f}s")
     return 0
 
 
 def cmd_distribution(args):
+    from .parallel.mesh import is_rank0
     from .sweep import run_distribution, write_angular_dist, write_ray_log
 
-    device = _device(args)
+    device, mesh = _device_mesh(args)
     scene, source = _scene_source(args)
     d = run_distribution(scene, source, device=device, n_rays=args.rays,
-                         seed=args.seed, cfg=_cfg(args))
+                         seed=args.seed, cfg=_cfg(args), mesh=mesh)
+    if not is_rank0(mesh):
+        return 0
     print(f"Flux of rays through the exit port: {d.n_exited}")
     if args.ray_log:
         write_ray_log(args.ray_log, d.directions)
@@ -190,18 +234,20 @@ def cmd_series(args):
 
 
 def cmd_insphere(args):
+    from .parallel.mesh import is_rank0
     from .sweep import sweep_insphere_detector
 
-    device = _device(args)
+    device, mesh = _device_mesh(args)
     scene, source = _scene_source(args)
     scene = scene.with_(outer_radius=105.0, world_half=200.0)
     r = sweep_insphere_detector(
         scene, source, device=device, disk_radius=args.disk_radius,
         n_rays=args.rays, dtheta=args.dtheta, theta_max=args.theta_max,
         seed=args.seed, save_path=args.out_file, retrace=args.retrace,
-        cfg=_cfg(args))
-    print(f"{len(r.thetas)} positions in {r.wall_time_s:.2f}s -> "
-          f"{args.out_file}")
+        cfg=_cfg(args), mesh=mesh)
+    if is_rank0(mesh):
+        print(f"{len(r.thetas)} positions in {r.wall_time_s:.2f}s -> "
+              f"{args.out_file}")
     return 0
 
 
@@ -228,9 +274,10 @@ def cmd_scatter_retrace(args):
     import numpy as np
 
     from .config import DetectorGrid
+    from .parallel.mesh import is_rank0
     from .sweep import sweep_scatter_retrace
 
-    device = _device(args)
+    device, mesh = _device_mesh(args)
     scene, source = _scene_source(args)
     scene = scene.with_(specular_prob=args.specular, diffuse_prob=args.diffuse,
                         brdf_roughness=args.brdf_roughness)
@@ -238,7 +285,9 @@ def cmd_scatter_retrace(args):
                         width=args.detector_size, height=args.detector_size)
     sw = sweep_scatter_retrace(scene, source, device=device,
                                n_rays=args.rays, grid=grid, seed=args.seed,
-                               cfg=_cfg(args))
+                               cfg=_cfg(args), mesh=mesh)
+    if not is_rank0(mesh):
+        return 0
     np.savetxt(args.out_file,
                np.column_stack([
                    np.repeat((np.arange(grid.n_theta) + 0.5)
@@ -293,6 +342,7 @@ def main(argv=None) -> int:
                         "(sweep.fluxmap_replicates; with --qmc each "
                         "replicate is an independent Sobol randomisation)")
     p.add_argument("--notify", action="store_true")
+    _add_mesh_arg(p)
     p.set_defaults(fn=cmd_fluxmap)
 
     p = sub.add_parser("series", help="port-angle / repeat sweep series")
@@ -321,6 +371,7 @@ def main(argv=None) -> int:
                    help="write 3dRayLog.txt-dialect directions here")
     p.add_argument("--angular-dist", default=None,
                    help="write angular_dist.txt-dialect histogram here")
+    _add_mesh_arg(p)
     p.set_defaults(fn=cmd_distribution)
 
     p = sub.add_parser("insphere", help="in-sphere detector-disk sweep")
@@ -332,6 +383,7 @@ def main(argv=None) -> int:
     p.add_argument("--retrace", action="store_true",
                    help="re-trace per position (reference methodology)")
     p.add_argument("--out-file", default="detector_sweep3.txt")
+    _add_mesh_arg(p)
     p.set_defaults(fn=cmd_insphere)
 
     p = sub.add_parser("visualize", help="ray-path classification plot")
@@ -359,6 +411,7 @@ def main(argv=None) -> int:
     p.add_argument("--diffuse", type=float, default=0.6)
     p.add_argument("--brdf-roughness", type=float, default=0.3)
     p.add_argument("--out-file", default="fluxmap_data.csv")
+    _add_mesh_arg(p)
     p.set_defaults(fn=cmd_scatter_retrace)
 
     p = sub.add_parser("analyze", help="flux-map analysis/plots")
@@ -367,7 +420,14 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_analyze)
 
     args = ap.parse_args(argv)
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    finally:
+        if getattr(args, "mesh", False):
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
 
 
 if __name__ == "__main__":  # pragma: no cover

@@ -92,6 +92,15 @@ def sphere_hit(p: Vec3, d: Vec3, radius) -> Vec3:
     return q.scale(radius * torch.rsqrt(q.norm2()))
 
 
+def in_port_cap(q: Vec3, radius, theta_max_rad):
+    """True where sphere point ``q`` lies in the open polar cap (the exit
+    port): polar angle from +z beyond ``theta_max`` (a tensor, radians).
+    The shell of ``TGeoSphere(..., 0., thetaMax)``
+    (``fluxAtObserverOptimize.C:204``) exists for theta in [0, thetaMax];
+    the test is z < r*cos(theta_max), no acos."""
+    return q.z < radius * torch.cos(theta_max_rad)
+
+
 def ray_box_exit_t(p: Vec3, d: Vec3, half):
     """Distance from interior point ``p`` along unit ``d`` to the world box
     of half-width ``half`` (``fluxAtObserver.C:149``)."""
@@ -182,6 +191,15 @@ def detector_position(theta_deg, phi_deg, radius, exit_port_z=-100.0):
     mag = torch.sqrt(dx * dx + dy * dy + dz * dz)
     normal = Vec3(-dy / mag, dx / mag, dz / mag)   # fluxAtObserver.C:65-67
     return Vec3(cx, cy, cz), normal
+
+
+def detector_position_aimed(theta_deg, phi_deg, radius, exit_port_z=-100.0):
+    """Spherical placement with the normal aimed at the port centre (what
+    ``setPosition``'s comment says it does, and ``detector_position`` does
+    not)."""
+    center, n = detector_position(theta_deg, phi_deg, radius, exit_port_z)
+    # detector_position stores (-dy, dx, dz)/|dvec|; the aim is -dvec/|dvec|
+    return center, Vec3(-n.y, n.x, -n.z)
 
 
 def line_hits_disk(point: Vec3, direction: Vec3, center: Vec3, normal: Vec3,

@@ -249,6 +249,22 @@ def fluxmap_retrace(
     position ``i * pos_chunk + j // n_per_pos``.  ``centers_normals``
     overrides the placement with ``([P, 3], [P, 3])`` tensors on
     ``device``.  A nonzero overflow of any chunk's trace raises."""
+    counts, overflow = fluxmap_retrace_counts(
+        gen, scene, source, grid, n_per_pos, cfg, pos_chunk,
+        centers_normals, device=device)
+    if int(overflow):
+        raise RuntimeError(
+            f"retrace overflow: {int(overflow)} rays unfinished — "
+            "statistically impossible at the planned capacities; investigate")
+    return counts
+
+
+def fluxmap_retrace_counts(gen, scene, source, grid, n_per_pos,
+                           cfg=TraceConfig(), pos_chunk=None,
+                           centers_normals=None, *, device):
+    """``fluxmap_retrace`` without its check: ``(counts, overflow)``, the
+    map and the rays its traces left unfinished (a 0-d int32 tensor), for
+    a caller that sums the overflow over ranks before it tests it."""
     from .trace_waves import trace_rays_auto
 
     if pos_chunk is None:
@@ -275,11 +291,8 @@ def fluxmap_retrace(
                              PARALLEL_EPS)
         hit &= res.exited_port_mask(scene.exit_port_z)
         counts.append(hit.view(chunk, n_per_pos).sum(1, dtype=torch.int32))
-    if int(overflow):
-        raise RuntimeError(
-            f"retrace overflow: {int(overflow)} rays unfinished — "
-            "statistically impossible at the planned capacities; investigate")
-    return torch.cat(counts)[:P].reshape(grid.n_theta, grid.n_phi)
+    return (torch.cat(counts)[:P].reshape(grid.n_theta, grid.n_phi),
+            overflow)
 
 
 def binomial_pos_chunk(capacity: int) -> int:

@@ -2,7 +2,7 @@
 ``altair_tpu/sweep/distribution.py``: ``distributionSphereDetectorSweep.C``
 and the ``makeIntegratingSphereNRays.C`` flux counter, plus the raw
 direction log (``3dRayLog.txt``) and cos-z histogram (``angular_dist.txt``)
-payloads.  The JAX function's ``mesh=`` argument is not ported.
+payloads.
 """
 
 from __future__ import annotations
@@ -50,20 +50,43 @@ def run_distribution(
     seed: int = 0,
     cfg: TraceConfig = TraceConfig(),
     keep_directions: bool = True,
+    mesh=None,
 ) -> DistributionResult:
     """Trace on ``device`` and histogram the exit angles (10k rays in the
     reference macro, ``distributionSphereDetectorSweep.C:57``).  The
     histograms are built on the device; one readback brings them and the
-    direction payload to the host.  A nonzero trace overflow raises."""
+    direction payload to the host.  A nonzero trace overflow raises.
+
+    The trace goes through ``trace_rays_auto`` (the direct sampler for a
+    Lambertian wall), where the JAX function's single-device run uses the
+    in-loop ``trace_rays`` and only its mesh run the dispatch: same
+    distribution, other streams.
+
+    ``mesh``: split the rays over the mesh's ranks
+    (``parallel.sharded_distribution``: the histograms are summed, and the
+    ranks' direction payloads are gathered in rank order, so every rank
+    returns the whole result)."""
     t0 = time.perf_counter()
-    res, rim = trace_rays_auto(torch.Generator().manual_seed(seed), scene,
-                               source, n_rays, cfg, device=device)
-    mask, dx, dy, dz = exit_directions(res, scene.exit_port_z)
-    ang = exit_angle_histogram(res, exit_port_z=scene.exit_port_z)
-    dzh = z_angle_histogram(dz, mask)
-    if int(rim.total):
-        raise RuntimeError(f"distribution: {int(rim.total)} rim-clipped rays "
-                           "unfinished; investigate")
+    key = torch.Generator().manual_seed(seed)
+    if mesh is not None:
+        from ..parallel import sharded_distribution
+
+        mesh.check_device(device)
+        ang, dzh, mask, dx, dy, dz = sharded_distribution(
+            mesh, key, scene, source, n_rays, cfg)
+        # one gather for the mask and the three components
+        mask, dx, dy, dz = mesh.all_gather(torch.stack(
+            [mask.to(dx.dtype), dx, dy, dz])).transpose(0, 1).reshape(4, -1)
+        mask = mask > 0
+    else:
+        res, rim = trace_rays_auto(key, scene, source, n_rays, cfg,
+                                   device=device)
+        mask, dx, dy, dz = exit_directions(res, scene.exit_port_z)
+        ang = exit_angle_histogram(res, exit_port_z=scene.exit_port_z)
+        dzh = z_angle_histogram(dz, mask)
+        if int(rim.total):
+            raise RuntimeError(f"distribution: {int(rim.total)} rim-clipped "
+                               "rays unfinished; investigate")
     m = mask.cpu().numpy()
     dirs = (torch.stack([dx, dy, dz], 1).cpu().numpy()[m]
             if keep_directions else np.zeros((0, 3)))

@@ -11,7 +11,7 @@ re-trace is kept too (``retrace=True``) for methodology parity.
 
 Output: the ``detector_sweep3.txt`` dialect — ``Theta(deg)\\tPhi(deg)\\t
 HitFraction`` rows over theta in [-thetaMax, thetaMax] (step dtheta) x
-phi in {0, 180}.  The JAX function's ``mesh=`` argument is not ported.
+phi in {0, 180}.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from ..core.geometry import Vec3
 from ..core.score import (_pad_positions, hits_insphere_disks,
                           insphere_disk_hit_mask, insphere_disk_position)
 from ..core.trace import fold_in
+from ..parallel.mesh import on_rank0
 # engine dispatch: the disk lives outside the sphere, so any engine's
 # final-segment contract feeds the disk test (the corpus scene's thick
 # shell keeps it on the in-loop rim tracers; thin-shell scenes get the
@@ -82,6 +83,7 @@ def sweep_insphere_detector(
     pos_chunk: int | None = None,
     save_path: str | None = "detector_sweep3.txt",
     aimed: bool = False,
+    mesh=None,
 ) -> InsphereSweepResult:
     """Sweep the focal-surface disk over theta in [-theta_max, theta_max]
     (inclusive, like the reference's ``theta <= thetaMax`` loop) x phi in
@@ -96,7 +98,11 @@ def sweep_insphere_detector(
     with disks that nothing hits; the positions are independent under the
     pseudorandom engines, and with ``cfg.qmc`` the direct sampler gives the
     positions of a chunk one Sobol block (unbiased means, correlated
-    chunk-mates).  A nonzero trace overflow raises."""
+    chunk-mates).  A nonzero trace overflow raises.
+    ``mesh``: split the ray axis over the mesh's ranks for both
+    methodologies (``parallel.sharded_insphere``, one sum); ``pos_chunk``
+    is then per device (None: ``sharded_insphere``'s default), and rank 0
+    writes ``save_path``."""
     t0 = time.perf_counter()
     thetas = np.arange(-theta_max, theta_max + dtheta / 2, dtheta)
     phis = np.arange(0.0, 360.0, dphi)
@@ -111,7 +117,16 @@ def sweep_insphere_detector(
         placement_radius, scene.exit_port_z, aimed=aimed)
     C, Nrm = centers.stack(), normals.stack()
 
-    if retrace:
+    if mesh is not None:
+        from ..parallel import sharded_insphere
+
+        mesh.check_device(device)
+        # the route sums the overflow over the ranks and raises
+        counts = sharded_insphere(mesh, key, scene, source, C, Nrm,
+                                  disk_radius, n_rays, cfg, retrace=retrace,
+                                  pos_chunk=pos_chunk)
+        overflow = torch.zeros_like(counts[0])
+    elif retrace:
         chunk = min(8 if pos_chunk is None else pos_chunk, len(tt))
         counts, overflow = _retrace_counts(key, scene, source, C, Nrm,
                                            float(disk_radius), n_rays, cfg,
@@ -129,11 +144,15 @@ def sweep_insphere_detector(
     frac = np.asarray(counts, np.float64) / n_rays
 
     wall = time.perf_counter() - t0
-    if save_path:
+
+    def write():
         with open(save_path, "w") as fh:
             fh.write("Theta(deg)\tPhi(deg)\tHitFraction\n")
             for th, ph_, fr in zip(tt, pp, frac):
                 fh.write(f"{_fmt(th)}\t{_fmt(ph_)}\t{_fmt(fr)}\n")
+
+    if save_path:
+        on_rank0(mesh, write)
     return InsphereSweepResult(tt, pp, frac, n_rays, wall)
 
 

@@ -14,7 +14,12 @@ protocol:
 * ``sweep_detector_twofold`` <- ``sweepDetectorTwofold``
   (``fluxAtObserverFast.C:518-865``): one batch per antipodal pair.
 
-The JAX module's ``mesh=`` argument is not ported.
+Every sweep but the replicates takes ``mesh=`` (a
+``altair_tpu_torch.parallel.Mesh``): all ranks call it with the same
+arguments, each traces its share of the rays on the mesh's device, and the
+counts are summed over the ranks.  Rank 0 alone prints the stamps and
+writes the CSV; every rank returns the same map and counts and rank 0's
+``path`` (the times are each rank's own clock).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from ..core.trace import fold_in
 from ..core.trace_waves import trace_rays_auto
 from ..io import (EtaTracker, FluxmapMetadata, FluxmapWriter, debug_stamp,
                   fluxmap_filename, notify_bell, read_fluxmap)
+from ..parallel.mesh import is_rank0, on_rank0
 
 
 @dataclasses.dataclass
@@ -87,33 +93,64 @@ def sweep_detector_trace_once(
     cfg: TraceConfig = TraceConfig(),
     save_folder: str | None = "results",
     notify: bool = False,
+    mesh=None,
     verbose: bool = True,
 ) -> SweepResult:
     """Trace once on ``device``, score the whole grid, write the CSV.
+    Pass ``mesh`` (from ``altair_tpu_torch.parallel.make_mesh``) to split
+    the rays over its ranks (``sharded_trace``, then
+    ``sharded_score_traced``).
 
     The trace and score phases are timed separately, like the reference's
-    TStopwatch pair (``fluxAtObserverFast.C:1374-1382``).  A compaction or
-    deferred-rim overflow raises: either would leave rays unscored or
-    unfinished."""
+    TStopwatch pair (``fluxAtObserverFast.C:1374-1382``); under a mesh the
+    score phase ends after the sum over the ranks.  A compaction or
+    deferred-rim overflow raises (on every rank): either would leave rays
+    unscored or unfinished."""
     validate(scene, source)
     t_setup0 = time.perf_counter()
     gen = torch.Generator().manual_seed(seed)
-    cap = exit_capacity(scene, n_rays)
+    verbose = verbose and is_rank0(mesh)
+
+    if verbose:
+        debug_stamp("Starting sweep setup")
+
+    if mesh is not None:
+        from ..parallel import sharded_score_traced, sharded_trace
+
+        mesh.check_device(device)
+
+        def run_trace():
+            # the routes sum their overflow counts over the ranks and raise
+            return sharded_trace(mesh, gen, scene, source, n_rays, cfg), 0
+
+        def run_score(res):
+            counts, n_exit = sharded_score_traced(mesh, res, scene, grid)
+            return counts, n_exit, 0
+    else:
+        cap = exit_capacity(scene, n_rays)
+
+        def run_trace():
+            return trace_rays_auto(gen, scene, source, n_rays, cfg,
+                                   device=device)
+
+        def run_score(res):
+            counts, overflow = fluxmap_trace_once_compact(
+                res, grid, cap, scene.exit_port_z)
+            return (counts, res.exited_port_mask(scene.exit_port_z).sum(),
+                    overflow)
 
     if verbose:
         debug_stamp("Tracing all rays once")
     t0 = time.perf_counter()
-    res, rim_overflow = trace_rays_auto(gen, scene, source, n_rays, cfg,
-                                        device=device)
+    res, rim_overflow = run_trace()
     _wait(device)
     t_trace = time.perf_counter() - t0
     if verbose:
         debug_stamp(f"Ray tracing completed in {t_trace:.4f} s")
 
     t1 = time.perf_counter()
-    counts, overflow = fluxmap_trace_once_compact(res, grid, cap,
-                                                  scene.exit_port_z)
-    n_exit = int(res.exited_port_mask(scene.exit_port_z).sum())
+    counts, n_exit, overflow = run_score(res)
+    n_exit = int(n_exit)
     fm = counts.cpu().numpy().astype(np.float64) / n_rays
     t_score = time.perf_counter() - t1
     if int(overflow) or int(rim_overflow):
@@ -126,12 +163,12 @@ def sweep_detector_trace_once(
         print(f"Total rays exiting port: {n_exit} out of {n_rays}")
 
     total = time.perf_counter() - t_setup0
-    path = write_fluxmap_csv(
+    path = on_rank0(mesh, lambda: write_fluxmap_csv(
         save_folder, scene, source, grid, n_rays, fm, trace_once=True,
         footer=dict(total_time_s=total, ray_time_s=t_trace,
                     sweep_time_s=t_score, exited=n_exit, n_rays=n_rays),
-        verbose=verbose)
-    if notify:
+        verbose=verbose))
+    if notify and is_rank0(mesh):
         notify_bell()
     return SweepResult(path, fm, n_exit, n_rays, t_trace, t_score, total)
 
@@ -229,6 +266,7 @@ def sweep_detector_retrace(
     resume_path: str | None = None,
     engine: str = "simulate",
     oversample: int = 128,
+    mesh=None,
 ) -> SweepResult:
     """Fresh rays for every detector position on ``device``, in chunks of
     theta rows (one row by default; ``pos_chunk`` a multiple of ``n_phi``
@@ -241,7 +279,13 @@ def sweep_detector_retrace(
     ``engine="simulate"`` (default) traces ``n_rays_per_pos`` rays per
     position, the exact law of ``sweepDetector``; ``engine="binomial"``
     draws each cell around one shared ``oversample * n_rays_per_pos``-ray
-    trace (``fluxmap_retrace_binomial``): one shot, so no resume."""
+    trace (``fluxmap_retrace_binomial``): one shot, so no resume.
+
+    ``mesh``: split each position's rays over the mesh's ranks
+    (``parallel.sharded_retrace`` / ``sharded_retrace_binomial``: counts
+    add across ranks, one sum).  The sharded simulate sweep computes the
+    whole map in one call, so the per-chunk flush and ``resume_path`` do
+    not apply."""
     validate(scene, source)
     if engine == "binomial":
         if resume_path is not None:
@@ -251,9 +295,16 @@ def sweep_detector_retrace(
                 "(re-running is cheaper than the partial CSV)")
         return _retrace_binomial(scene, source, n_rays_per_pos, grid, seed,
                                  cfg, save_folder, notify, verbose,
-                                 oversample, device)
+                                 oversample, device, mesh)
     if engine != "simulate":
         raise ValueError(f"unknown retrace engine {engine!r}")
+    if mesh is not None:
+        if resume_path is not None:
+            raise ValueError("mesh retrace computes the whole map in one "
+                             "sharded call — no chunked flush to resume")
+        return _retrace_sharded(scene, source, n_rays_per_pos, grid, seed,
+                                cfg, save_folder, notify, verbose, mesh,
+                                device)
     t_all0 = time.perf_counter()
     key = torch.Generator().manual_seed(seed)
     P = grid.n_positions
@@ -332,32 +383,73 @@ def sweep_detector_retrace(
                        total - t_trace, total)
 
 
-def _retrace_binomial(scene, source, n_rays_per_pos, grid, seed, cfg,
-                      save_folder, notify, verbose, oversample, device):
-    """The ``engine="binomial"`` body of ``sweep_detector_retrace``: the
-    whole map at once, same CSV dialect and footer."""
+def _whole_map_retrace(run, stamps, scene, source, n_rays_per_pos, grid,
+                       save_folder, notify, verbose, mesh):
+    """A retrace map computed in one call, ``run() -> counts``: timed
+    between the two ``stamps``, written in the retrace CSV dialect with
+    its footer (by rank 0 under a mesh)."""
     t_all0 = time.perf_counter()
-    key = torch.Generator().manual_seed(seed)
+    verbose = verbose and is_rank0(mesh)
     if verbose:
-        debug_stamp(f"Binomial retrace: sampling {oversample}x"
-                    f"{n_rays_per_pos} shared rays")
+        debug_stamp(stamps[0])
     t0 = time.perf_counter()
-    counts = fluxmap_retrace_binomial(key, scene, source, grid,
-                                      n_rays_per_pos, cfg, oversample,
-                                      device=device)
-    fm = counts.cpu().numpy().astype(np.float64) / n_rays_per_pos
+    fm = run().cpu().numpy().astype(np.float64) / n_rays_per_pos
     t_trace = time.perf_counter() - t0
-    if verbose:
-        debug_stamp(f"Binomial retrace completed in {t_trace:.4f} s")
+    if verbose and stamps[1]:
+        debug_stamp(stamps[1].format(t_trace))
     total = time.perf_counter() - t_all0
-    path = write_fluxmap_csv(
+    path = on_rank0(mesh, lambda: write_fluxmap_csv(
         save_folder, scene, source, grid, n_rays_per_pos, fm,
         trace_once=False, verbose=verbose,
-        footer=_retrace_footer(total, fm, n_rays_per_pos, grid.n_positions))
-    if notify:
+        footer=_retrace_footer(total, fm, n_rays_per_pos, grid.n_positions)))
+    if notify and is_rank0(mesh):
         notify_bell()
     return SweepResult(path, fm, -1, n_rays_per_pos, t_trace,
                        total - t_trace, total)
+
+
+def _retrace_sharded(scene, source, n_rays_per_pos, grid, seed, cfg,
+                     save_folder, notify, verbose, mesh, device):
+    """``mesh`` body of the simulate-engine ``sweep_detector_retrace``:
+    the whole honest retrace map as one sharded call (each position's rays
+    split over the ranks, one sum), same CSV dialect and footer."""
+    from ..parallel import sharded_retrace
+
+    mesh.check_device(device)
+    key = torch.Generator().manual_seed(seed)
+    return _whole_map_retrace(
+        lambda: sharded_retrace(mesh, key, scene, source, grid,
+                                n_rays_per_pos, cfg),
+        (f"Sharded retrace over {mesh.world_size} devices", None),
+        scene, source, n_rays_per_pos, grid, save_folder, notify, verbose,
+        mesh)
+
+
+def _retrace_binomial(scene, source, n_rays_per_pos, grid, seed, cfg,
+                      save_folder, notify, verbose, oversample, device,
+                      mesh=None):
+    """The ``engine="binomial"`` body of ``sweep_detector_retrace``: the
+    whole map at once, same CSV dialect and footer."""
+    key = torch.Generator().manual_seed(seed)
+    if mesh is not None:
+        from ..parallel import sharded_retrace_binomial
+
+        mesh.check_device(device)
+
+        def run():
+            return sharded_retrace_binomial(mesh, key, scene, source, grid,
+                                            n_rays_per_pos, cfg,
+                                            oversample=oversample)
+    else:
+        def run():
+            return fluxmap_retrace_binomial(key, scene, source, grid,
+                                            n_rays_per_pos, cfg, oversample,
+                                            device=device)
+    return _whole_map_retrace(
+        run, (f"Binomial retrace: sampling {oversample}x{n_rays_per_pos} "
+              "shared rays", "Binomial retrace completed in {:.4f} s"),
+        scene, source, n_rays_per_pos, grid, save_folder, notify, verbose,
+        mesh)
 
 
 def sweep_detector_twofold(
@@ -372,12 +464,14 @@ def sweep_detector_twofold(
     save_folder: str | None = "results",
     notify: bool = False,
     verbose: bool = True,
+    mesh=None,
 ) -> SweepResult:
     """Twofold reuse: one fresh batch per antipodal position pair (phi,
     phi + 180), scored against both (``sweepDetectorTwofold``,
     ``fluxAtObserverFast.C:656-714``).  Pair ``i * n_phi/2 + j`` traces
     from ``fold_in(key, i * n_phi/2 + j)``.  Needs an even ``n_phi`` over a
-    full 360-degree phi span."""
+    full 360-degree phi span.  ``mesh``: split each pair's batch over the
+    mesh's ranks (``parallel.sharded_twofold_pair``, one sum per pair)."""
     if grid.n_phi % 2:
         raise ValueError("twofold needs an even n_phi")
     if abs((grid.phi_hi - grid.phi_lo) - 360.0) > 1e-9:
@@ -400,22 +494,36 @@ def sweep_detector_twofold(
     ph = grid.phi_centers().to(device)
     half = grid.n_phi // 2
     half_w = grid.width / 2.0
+
+    if mesh is not None:
+        from ..parallel import sharded_twofold_pair
+
+        mesh.check_device(device)
+
+        def pair_counts(k, theta, phi):
+            # the route sums the rim overflow over the ranks and raises
+            return sharded_twofold_pair(mesh, k, scene, source, grid,
+                                        n_rays_per_pair, cfg, theta,
+                                        phi).tolist() + [0]
+    else:
+        def pair_counts(k, theta, phi):
+            res, rim = trace_rays_auto(k, scene, source, n_rays_per_pair,
+                                       cfg, device=device)
+            out = []
+            for p in (phi, phi + 180.0):
+                c, n = detector_position(theta, p, grid.radius,
+                                         scene.exit_port_z)
+                out.append(hits_single_detector(res, c, n, half_w,
+                                                scene.exit_port_z))
+            return torch.stack(out + [rim.total]).tolist()
+
     fm = np.zeros((grid.n_theta, grid.n_phi))
     eta = EtaTracker(total=grid.n_theta * half)
     t_trace = 0.0
     for i in range(grid.n_theta):
         for j in range(half):
             t0 = time.perf_counter()
-            res, rim = trace_rays_auto(fold_in(key, i * half + j), scene,
-                                       source, n_rays_per_pair, cfg,
-                                       device=device)
-            out = []
-            for p in (ph[j], ph[j] + 180.0):
-                c, n = detector_position(th[i], p, grid.radius,
-                                         scene.exit_port_z)
-                out.append(hits_single_detector(res, c, n, half_w,
-                                                scene.exit_port_z))
-            cnt = torch.stack(out + [rim.total]).tolist()
+            cnt = pair_counts(fold_in(key, i * half + j), th[i], ph[j])
             t_trace += time.perf_counter() - t0
             if cnt[2]:
                 raise RuntimeError(f"twofold: {cnt[2]} rim-clipped rays "
@@ -423,16 +531,16 @@ def sweep_detector_twofold(
             fm[i, j] = cnt[0] / n_rays_per_pair
             fm[i, j + half] = cnt[1] / n_rays_per_pair
             eta.tick()
-        if verbose:
+        if verbose and is_rank0(mesh):
             print(f"theta={float(th_host[i]):.2f} done "
                   f"({eta.percent:.1f}%)")
 
     total = time.perf_counter() - t0_all
-    path = write_fluxmap_csv(
+    path = on_rank0(mesh, lambda: write_fluxmap_csv(
         save_folder, scene, source, grid, n_rays_per_pair, fm,
         trace_once=False,
-        footer=_retrace_footer(total, fm, n_rays_per_pair, grid.n_positions))
-    if notify:
+        footer=_retrace_footer(total, fm, n_rays_per_pair, grid.n_positions)))
+    if notify and is_rank0(mesh):
         notify_bell()
     return SweepResult(path, fm, -1, n_rays_per_pair, t_trace,
                        total - t_trace, total)

@@ -22,8 +22,7 @@ meaningful subset).
 Stage 1 goes through ``trace_rays_auto``, so a scene with a non-Lambertian
 wall runs the bounce kernel on the card.  Stage 2 is the eager bounce loop
 at every size: the waves tracer would suspend the rays its compaction
-cannot hold, which the reference's from-state loop never does.  The JAX
-function's ``mesh=`` argument is not ported.
+cannot hold, which the reference's from-state loop never does.
 """
 
 from __future__ import annotations
@@ -127,20 +126,31 @@ def sweep_scatter_retrace(
                                       height=10.0),
     seed: int = 0,
     cfg: TraceConfig = TraceConfig(),
+    mesh=None,
 ) -> ScatterRetraceSweep:
     """``sweepDetector`` of nonLambertianFlux.C (``:307-387``): 45x20 grid,
     10x10 cm detector, 100k rays, scored on the scattered rays: one trace,
     rescatter and score on ``device`` instead of a re-trace per position.
-    A nonzero overflow of stage 1 raises."""
+    A nonzero overflow of stage 1 raises.  ``mesh``: split the ray axis
+    over the mesh's ranks (``parallel.sharded_scatter_retrace``: both
+    stages stay on the rank, one sum of the map)."""
     t0 = time.perf_counter()
-    res, overflow = trace_scatter_retrace(
-        torch.Generator().manual_seed(seed), scene, source, n_rays, cfg,
-        device=device)
-    counts = fluxmap_trace_once(res, grid, scene.exit_port_z)
-    if int(overflow):
-        raise RuntimeError(
-            f"scatter-retrace: {int(overflow)} rays unfinished in stage 1 — "
-            "statistically impossible at the planned capacities; investigate")
+    key = torch.Generator().manual_seed(seed)
+    if mesh is not None:
+        from ..parallel import sharded_scatter_retrace
+
+        mesh.check_device(device)
+        counts = sharded_scatter_retrace(mesh, key, scene, source, grid,
+                                         n_rays, cfg)
+    else:
+        res, overflow = trace_scatter_retrace(key, scene, source, n_rays,
+                                              cfg, device=device)
+        counts = fluxmap_trace_once(res, grid, scene.exit_port_z)
+        if int(overflow):
+            raise RuntimeError(
+                f"scatter-retrace: {int(overflow)} rays unfinished in stage "
+                "1 — statistically impossible at the planned capacities; "
+                "investigate")
     return ScatterRetraceSweep(
         counts.cpu().numpy().astype(np.float64) / n_rays, n_rays,
         time.perf_counter() - t0)

@@ -152,8 +152,15 @@ def scene_members(scenes: SphereScene):
 
 
 def _series_tracer(base_scene: SphereScene, port_angles, cfg: TraceConfig):
-    """Pick the one tracer every member of the series runs, from the
-    concrete member list, as the JAX function does before it batches:
+    """``members_tracer`` for the port-angle members of ``base_scene``."""
+    return members_tracer(
+        [base_scene.with_(theta_max_deg=float(p)) for p in port_angles], cfg)
+
+
+def members_tracer(members: Sequence[SphereScene], cfg: TraceConfig):
+    """Pick the one tracer every member of a series runs, from the
+    concrete member scenes (which share the static fields: surface model,
+    bounce cap, rim mode), as the JAX functions do before they batch:
 
     * the direct sampler for a statically-Lambertian scene (unless
       ``cfg.engine == "simulate"``), under the deferred rim post-pass for
@@ -175,7 +182,7 @@ def _series_tracer(base_scene: SphereScene, port_angles, cfg: TraceConfig):
                                         device=device)
         return res, RimOverflow(total=ovf, grouped_drops=ovf)
 
-    members = [base_scene.with_(theta_max_deg=float(p)) for p in port_angles]
+    base_scene = members[0]
     if direct_applicable(base_scene, cfg) and cfg.engine != "simulate":
         main = lossless(trace_rays_direct)
     else:

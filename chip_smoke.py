@@ -1,8 +1,9 @@
 #!/usr/bin/env python
 """Smoke run of altair_tpu_torch on one NVIDIA GPU (the Hopper port of the
 trace-once flux-map path, the simulate engine's large-batch path, the
-retrace flux-map path and the single-card studies: series, in-sphere disk
-sweep, scatter-retrace, path history and the other CLI subcommands).
+retrace flux-map path, the single-card studies: series, in-sphere disk
+sweep, scatter-retrace, path history and the other CLI subcommands, and
+the multi-device layer).
 
     python3 chip_smoke.py
 
@@ -38,8 +39,16 @@ kernel), 100 ray paths with history and their HTML view, and the
 ``visualize`` CLI subcommands in their own processes.  The refill kernel is
 held against its plain version at every size a main path launches it with
 (4,194,304 and 1,600,000 rays, the dispatched setting); the other laws and
-the kernel without the handoff at 2^20 and 65,536 rays.  Each phase prints
-one JSON line, with the seconds since the start at which it ended; any
+the kernel without the handoff at 2^20 and 65,536 rays.  Then the
+multi-device layer (``altair_tpu_torch.parallel``): at world size 1 over
+NCCL in this process, ``sharded_fluxmap`` on the headline job with both
+engines (the map equal, cell for cell, to the single-device run from
+``fold_in(key, 0)``), ``sharded_trace`` at 4,194,304 rays through the
+refill kernel, and every other route at 20,000 rays held exactly against
+the single-device functions; then two ranks over gloo on this one card,
+started by ``python -m altair_tpu_torch.parallel.demo --launch 2``, whose
+reduced outputs must equal the sum of the two single-process calls.  Each
+phase prints one JSON line, with the seconds since the start at which it ended; any
 failed check raises, so the exit code is not 0.
 The last three lines are the card's name and power limit from nvidia-smi,
 the kernel table as JSON, and the ok line.  Exits non-zero without a CUDA
@@ -1269,6 +1278,217 @@ def phase_cli(device, out_dir):
     return out
 
 
+def phase_mesh(device, n=N_HEADLINE, n_scale=N_SCALE, n_routes=20_000,
+               seed=1500, backend="nccl"):
+    """The multi-device layer at world size 1 on NCCL, in this process.
+
+    ``sharded_fluxmap`` on the headline job (production scene, n rays, the
+    full grid), direct and simulate: the exit fraction inside the window
+    and the map equal, cell for cell, to the single-device
+    ``trace_rays_auto`` + ``fluxmap_trace_once_compact`` run from
+    ``fold_in(key, 0)`` (a route that raised would have found an
+    overflow).  Each side runs warm, then timed, in turns.  Then
+    ``sharded_trace`` at ``n_scale`` rays through the simulate engine (the
+    refill kernel), its exit count equal to the single-device run's.  Then
+    every route of ``parallel.demo`` at ``n_routes`` rays, each held
+    exactly against ``demo.reference`` (the single-device functions) and
+    the flux map within 5 sigma per cell of a run from another seed.  The
+    kernel counts are set to 0 before each mesh run and read after it."""
+    import torch.distributed as dist
+
+    from altair_tpu_torch import (SCENE_OPTIMIZE, SOURCE_OVERNIGHT,
+                                  DetectorGrid, TraceConfig, trace_rays_auto)
+    from altair_tpu_torch.core import trace_cuda
+    from altair_tpu_torch.core.score import (exit_capacity,
+                                             fluxmap_trace_once_compact)
+    from altair_tpu_torch.core.trace import fold_in
+    from altair_tpu_torch.parallel import (demo, init_distributed, make_mesh,
+                                           sharded_fluxmap, sharded_trace)
+
+    init_distributed(backend=backend, rank=0, world_size=1,
+                     store=dist.HashStore())
+    try:
+        mesh = make_mesh(device)
+        check(mesh.backend == backend and mesh.world_size == 1
+              and mesh.device == device, f"mesh {mesh}")
+        scene = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES)
+        grid = DetectorGrid()
+        out = {"phase": "mesh", "backend": mesh.backend,
+               "world_size": mesh.world_size, "n_rays": n}
+
+        def key():
+            return torch.Generator().manual_seed(seed)
+
+        def timed(fn):
+            sync(device)
+            t0 = time.perf_counter()
+            got = fn()
+            sync(device)
+            return got, time.perf_counter() - t0
+
+        for engine in ("auto", "simulate"):
+            cfg = TraceConfig(engine=engine)
+
+            def sharded():
+                return sharded_fluxmap(mesh, key(), scene, SOURCE_OVERNIGHT,
+                                       grid, n, cfg)
+
+            def single():
+                res, rim = trace_rays_auto(fold_in(key(), 0), scene,
+                                           SOURCE_OVERNIGHT, n, cfg,
+                                           device=device)
+                counts, ovf = fluxmap_trace_once_compact(
+                    res, grid, exit_capacity(scene, n), scene.exit_port_z)
+                return (counts, res.exited_port_mask(scene.exit_port_z).sum(),
+                        ovf + rim.total)
+
+            trace_cuda.reset_launch_counts()
+            sharded()
+            (counts, n_exit), mesh_s = timed(sharded)
+            launches = dict(trace_cuda.launch_counts)
+            sizes = sorted(trace_cuda.launch_sizes["bounce"])
+            single()
+            (ref, ref_exit, ref_ovf), single_s = timed(single)
+            frac = int(n_exit) / n
+            check(int(ref_ovf) == 0, f"mesh {engine}: single-device overflow")
+            check(EXIT_WINDOW[0] <= frac <= EXIT_WINDOW[1],
+                  f"mesh {engine}: exit fraction {frac}")
+            check(counts.dtype == torch.int32
+                  and counts.shape == (grid.n_theta, grid.n_phi),
+                  f"mesh {engine}: map {counts.dtype} {counts.shape}")
+            check(torch.equal(counts, ref) and int(n_exit) == int(ref_exit),
+                  f"mesh {engine}: the sharded map differs from the "
+                  f"single-device run in {int((counts != ref).sum())} cells")
+            out[f"fluxmap_{engine}"] = {
+                "exit_fraction": frac, "map_total": int(counts.sum()),
+                "cells_equal": True, "mesh_s": mesh_s, "single_s": single_s,
+                "launches": launches, "bounce_sizes": sizes}
+        check(out["fluxmap_simulate"]["launches"]["bounce"] >= 2
+              and n in out["fluxmap_simulate"]["bounce_sizes"],
+              "mesh: sharded_fluxmap never launched the bounce kernel")
+
+        cfg = TraceConfig(engine="simulate")
+        trace_cuda.reset_launch_counts()
+        res, mesh_s = timed(lambda: sharded_trace(
+            mesh, key(), scene, SOURCE_OVERNIGHT, n_scale, cfg))
+        launches = dict(trace_cuda.launch_counts)
+        sizes = sorted(trace_cuda.launch_sizes["refill"])
+        exits = int(res.exited_port_mask(scene.exit_port_z).sum())
+        del res
+        (ref, rim), single_s = timed(lambda: trace_rays_auto(
+            fold_in(key(), 0), scene, SOURCE_OVERNIGHT, n_scale, cfg,
+            device=device))
+        ref_exits = int(ref.exited_port_mask(scene.exit_port_z).sum())
+        del ref
+        check(int(rim) == 0, f"mesh trace: single-device overflow {int(rim)}")
+        check(launches["refill"] >= 1 and n_scale in sizes,
+              f"mesh: sharded_trace never launched the refill kernel: "
+              f"{launches} {sizes}")
+        check(exits == ref_exits,
+              f"mesh trace: {exits} exits vs single-device {ref_exits}")
+        check(EXIT_WINDOW[0] <= exits / n_scale <= EXIT_WINDOW[1],
+              f"mesh trace: exit fraction {exits / n_scale}")
+        out["trace_simulate"] = {
+            "n_rays": n_scale, "exits": exits, "exits_equal": True,
+            "mesh_s": mesh_s, "single_s": single_s, "launches": launches,
+            "refill_sizes": sizes}
+
+        walls = {}
+        trace_cuda.reset_launch_counts()
+        got = demo.run_routes(
+            mesh, n_routes,
+            lambda route, s, _: walls.__setitem__(route, round(s, 4)))
+        launches = dict(trace_cuda.launch_counts)
+        ref, ref_s = timed(lambda: demo.reference(1, n_routes, device))
+        for name, want in ref.items():
+            if name.endswith("_local_exits"):
+                want = want[0]
+            check(got[name].shape == want.shape
+                  and got[name].dtype == want.dtype
+                  and (got[name] == want).all(),
+                  f"mesh route output {name} differs from the single-device "
+                  "functions")
+        other, _ = sharded_fluxmap(
+            mesh, torch.Generator().manual_seed(seed + 1), demo.SCENE,
+            demo.SOURCE, demo.GRID, n_routes, demo.CFG)
+        a, b = got["fluxmap_counts"], other.cpu().numpy()
+        check((abs(a - b) <= 5 * (a.clip(1) ** 0.5) * 2 ** 0.5 + 10).all(),
+              "mesh: two seeds' flux maps differ by more than 5 sigma")
+        out["routes"] = {"n_rays": n_routes, "wall_s": walls,
+                         "all_s": sum(walls.values()),
+                         "reference_all_s": ref_s, "outputs": len(ref),
+                         "all_equal": True, "launches": launches}
+        return out, walls
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_two_ranks(device, out_dir, one_rank_walls, n_routes=20_000):
+    """``python -m altair_tpu_torch.parallel.demo --launch 2 --device cuda``
+    in its own processes: two ranks over gloo, both tracing on this card
+    (NCCL refuses two ranks on one card).  Every route's reduced output,
+    as rank 0 holds it, equals ``demo.reference(2, ...)`` computed here
+    from the single-device functions (``fold_in(key, 0)`` and ``fold_in(
+    key, 1)`` at half the rays, summed); rank 1 holds the same, the
+    binomial cells and every sweep's numbers included; the ranks' own exit
+    counts differ.  A nonzero return code or a timeout fails the run."""
+    import shutil
+
+    import numpy as np
+
+    from altair_tpu_torch.parallel import demo
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "altair_tpu_torch.parallel.demo",
+           "--launch", "2", "--device", "cuda", "--rays", str(n_routes),
+           "--out", out_dir, "--timeout", "120"]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                       capture_output=True, text=True, timeout=420)
+    wall = time.perf_counter() - t0
+    check(p.returncode == 0,
+          f"two ranks exited {p.returncode}: {p.stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in p.stdout.splitlines()
+             if ln.startswith('{"route"')]
+    check(len(lines) == len(demo.SEEDS)
+          and all(ln["world_size"] == 2 and ln["backend"] == "gloo"
+                  and ln["device"] == "cuda:0" for ln in lines),
+          f"two ranks: route lines {[ln['route'] for ln in lines]}")
+    ranks = [np.load(os.path.join(out_dir, f"rank{r}.npz"),
+                     allow_pickle=True) for r in (0, 1)]
+    ref = demo.reference(2, n_routes, device)
+    for name, want in ref.items():
+        if name.endswith("_local_exits"):
+            got = np.stack([r[name] for r in ranks])
+            check((got == want).all() and got[0] != got[1],
+                  f"two ranks: {name} {got.tolist()} vs {want.tolist()}")
+            continue
+        check(ranks[0][name].shape == want.shape
+              and (ranks[0][name] == want).all(),
+              f"two ranks: {name} differs from the sum of the two "
+              "single-process calls")
+    for name in ranks[0].files:
+        a, b = ranks[0][name], ranks[1][name]
+        same = (a == b).all() if a.dtype != object else a.item() == b.item()
+        check(name.endswith("_local_exits") or (a.shape == b.shape and same),
+              f"two ranks: the ranks disagree on {name}")
+    csvs = [str(ranks[0][k]) for k in ranks[0].files if k.endswith("_path")]
+    check(len(csvs) == 5 and all(os.path.getsize(c) > 0 for c in csvs),
+          f"two ranks: sweep files {csvs}")
+    walls = {ln["route"]: ln["wall_s"] for ln in lines}
+    return {"phase": "mesh_two_ranks", "cmd": " ".join(cmd[1:]),
+            "wall_s": wall, "n_rays": n_routes, "outputs": len(ref),
+            "sweep_outputs": sum(k.startswith("sweep_")
+                                 for k in ranks[0].files),
+            "all_equal": True,
+            "local_exits": {k: v.tolist() for k, v in ref.items()
+                            if k.endswith("_local_exits")},
+            "route_wall_s": walls, "routes_all_s": sum(walls.values()),
+            "one_rank_nccl_wall_s": one_rank_walls,
+            "one_rank_all_s": sum(one_rank_walls.values())}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1363,8 +1583,17 @@ def main() -> int:
     emit(scatter)
     emit(phase_history(device, os.path.join(save, "history")))
     emit(phase_cli(device, os.path.join(save, "cli")))
+
+    # the multi-device layer: world size 1 on NCCL in this process (the
+    # counts set to 0 before each of its runs), then two ranks on this card
+    mesh_out, mesh_walls = phase_mesh(device)
+    emit(mesh_out)
+    emit(phase_mesh_two_ranks(device, os.path.join(save, "mesh_two_ranks"),
+                              mesh_walls))
     path_launches = {
         "bounce": {"headline_simulate": launches,
+                   "mesh_fluxmap_simulate":
+                       mesh_out["fluxmap_simulate"]["launches"]["bounce"],
                    "series_simulate": series["simulate"]["launches"]["bounce"],
                    "scatter_retrace_mixed":
                        scatter["mixed_wall"]["launches"]["bounce"]},
@@ -1372,7 +1601,9 @@ def main() -> int:
                    "retrace_rows_simulate":
                        rows_out["simulate"]["launches"]["refill"],
                    "insphere_simulate_chunk":
-                       insphere["simulate_chunk"]["launches"]["refill"]},
+                       insphere["simulate_chunk"]["launches"]["refill"],
+                   "mesh_trace_simulate":
+                       mesh_out["trace_simulate"]["launches"]["refill"]},
     }
     for name, by_path in path_launches.items():
         for path, count in by_path.items():

@@ -239,6 +239,43 @@ def test_detector_position_keeps_normal_quirk():
     np.testing.assert_allclose(tn.y.numpy(), dvec[0], atol=1e-6)
 
 
+def test_detector_position_aimed_matches_jax():
+    """The aimed variant: same centre, the normal -dvec/|dvec| (the
+    reference's own case is ``tests/test_geometry.py``'s aimed test)."""
+    rng = np.random.default_rng(11)
+    th = rng.uniform(0.5, 89.5, N).astype(np.float32)
+    ph = rng.uniform(0, 360, N).astype(np.float32)
+    jc, jn = jgeo.detector_position_aimed(jnp.asarray(th), jnp.asarray(ph),
+                                          100.0, -100.0)
+    tc, tn = tgeo.detector_position_aimed(torch.from_numpy(th),
+                                          torch.from_numpy(ph), 100.0, -100.0)
+    _close(tc, jc)
+    _close(tn, jn)
+    port = tgeo.Vec3(*(torch.tensor(v) for v in (0.0, 0.0, -100.0)))
+    aim = (port - tc).normalized()
+    _close(tn, jgeo.Vec3(*(jnp.asarray(c.numpy()) for c in aim)))
+
+
+def test_in_port_cap_matches_jax(inputs):
+    """Sphere points against the cap test, at the cap's edge too."""
+    rng = np.random.default_rng(12)
+    q = _rand_vec(rng, unit=True) * np.float32(100.1)
+    tm = np.deg2rad(rng.choice(np.float32([150.0, 164.0, 170.0, 178.0]),
+                               N)).astype(np.float32)
+    jq, tq = _both(q)
+    j = np.asarray(jgeo.in_port_cap(jq, 100.1, jnp.asarray(tm)))
+    t = tgeo.in_port_cap(tq, 100.1, torch.from_numpy(tm)).numpy()
+    assert 0 < j.sum() < N
+    # a point within float rounding of the cap's edge may flip
+    edge = np.abs(q[2] - 100.1 * np.cos(tm)) < 1e-3
+    np.testing.assert_array_equal(t[~edge], j[~edge])
+    top = tgeo.Vec3(*(torch.tensor([v]) for v in (0.0, 0.0, 100.0)))
+    bottom = tgeo.Vec3(*(torch.tensor([v]) for v in (0.0, 0.0, -100.0)))
+    tm170 = torch.deg2rad(torch.tensor(170.0))
+    assert not bool(tgeo.in_port_cap(top, 100.0, tm170))
+    assert bool(tgeo.in_port_cap(bottom, 100.0, tm170))
+
+
 def test_line_hits_disk(inputs):
     rng = np.random.default_rng(3)
     th = rng.uniform(0, 90, N).astype(np.float32)

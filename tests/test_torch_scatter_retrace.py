@@ -155,7 +155,8 @@ def test_sweep_map_total_matches_jax():
     td = inspect.signature(tsr.sweep_scatter_retrace).parameters
     assert convert.grid(jd["grid"].default) == td["grid"].default
     assert td["n_rays"].default == jd["n_rays"].default == 100_000
-    assert "mesh" not in td and td["device"].default is inspect.Parameter.empty
+    assert td["mesh"].default is jd["mesh"].default is None
+    assert td["device"].default is inspect.Parameter.empty
 
 
 def test_exact_rim_and_mixed_wall_scenes_finish():

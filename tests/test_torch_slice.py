@@ -181,6 +181,38 @@ def test_csv_header_matches_jax(tmp_path):
     assert 0.38 < tp.n_exited / 4096 < 0.47
 
 
+def test_stdout_stamps_match_jax(monkeypatch, capsys):
+    """The same stdout protocol from both sweeps: the ``[DEBUG TIME ...]``
+    stamps in the same order with the same text (seconds masked), then
+    the exit-count line."""
+    import re
+
+    import altair_tpu.sweep.observer as j_observer
+    import altair_tpu_torch.sweep.observer as t_observer
+
+    def protocol(module, run):
+        # debug_stamp writes to the stream it bound at import, which no
+        # capture fixture sees: record its messages instead
+        stamps = []
+        monkeypatch.setattr(module, "debug_stamp", stamps.append)
+        capsys.readouterr()
+        run()
+        return ([re.sub(r"\d+\.\d+", "#", m) for m in stamps],
+                [re.sub(r"\d+ out", "# out", ln)
+                 for ln in capsys.readouterr().out.splitlines() if ln])
+
+    kw = dict(n_rays=4096, grid=GRID, seed=3, save_folder=None)
+    j = protocol(j_observer, lambda: j_sweep(SCENE, SOURCE_OVERNIGHT, **kw))
+    t = protocol(t_observer, lambda: t_sweep(
+        convert.scene(SCENE), convert.source(SOURCE_OVERNIGHT), device="cpu",
+        **dict(kw, grid=convert.grid(GRID))))
+    assert t == j
+    assert t[0] == ["Starting sweep setup", "Tracing all rays once",
+                    "Ray tracing completed in # s",
+                    "Detector sweep completed in # s"]
+    assert t[1] == ["Total rays exiting port: # out of 4096"]
+
+
 def test_unported_branches_raise():
     """What still raises, as in the JAX package: engine="direct" has no
     closed form for a non-Lambertian wall, and no path history."""
@@ -223,7 +255,8 @@ def test_package_imports_no_jax():
             "altair_tpu_torch.core.qmc, altair_tpu_torch.core.score, "
             "altair_tpu_torch.cli, altair_tpu_torch.viz, "
             "altair_tpu_torch.analysis, altair_tpu_torch.native, "
-            "altair_tpu_torch.io.profiling; "
+            "altair_tpu_torch.io.profiling, altair_tpu_torch.parallel, "
+            "altair_tpu_torch.parallel.demo; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'altair_tpu.'))  or m == 'altair_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
