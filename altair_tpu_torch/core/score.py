@@ -24,6 +24,7 @@ import time
 import torch
 
 from ..config import DetectorGrid, SphereScene, Source, SurfaceModel, TraceConfig
+from ..io.profiling import host_int, span
 from .geometry import Vec3, detector_position, line_hits_disk
 from .trace import (EXITED, TraceResult, device_generator, f32, fold_in,
                     split)
@@ -201,18 +202,25 @@ def fluxmap_trace_once_compact(result: TraceResult, grid: DetectorGrid,
     """Trace-once scoring over the exit subset compacted into a
     ``capacity``-sized buffer.  Returns ``(counts, n_overflow)``;
     ``n_overflow > 0`` means that many exit rays went unscored — treat it
-    as an error at the call site."""
+    as an error at the call site.
+
+    The span ``score``, with the rows scored (``exits``: the buffer's
+    ``capacity``), the ``positions`` and the position ``chunks``."""
     from .compact import nonzero_indices
 
-    mask = result.exited_port_mask(exit_port_z)
-    n = mask.shape[0]
-    idx = nonzero_indices(mask, capacity, n)
-    valid = idx < n
-    take = torch.clamp(idx, max=n - 1)
-    E = result.last_point.stack()[take]
-    D = result.direction.stack()[take]
-    n_overflow = mask.sum(dtype=torch.int32) - valid.sum(dtype=torch.int32)
-    counts = _score_grid(E, D, valid, grid, exit_port_z, pos_chunk, method)
+    P = grid.n_positions
+    with span("score", exits=capacity, positions=P,
+              chunks=-(-P // min(pos_chunk, P))):
+        mask = result.exited_port_mask(exit_port_z)
+        n = mask.shape[0]
+        idx = nonzero_indices(mask, capacity, n)
+        valid = idx < n
+        take = torch.clamp(idx, max=n - 1)
+        E = result.last_point.stack()[take]
+        D = result.direction.stack()[take]
+        n_overflow = mask.sum(dtype=torch.int32) - valid.sum(dtype=torch.int32)
+        counts = _score_grid(E, D, valid, grid, exit_port_z, pos_chunk,
+                             method)
     return counts, n_overflow
 
 
@@ -252,9 +260,10 @@ def fluxmap_retrace(
     counts, overflow = fluxmap_retrace_counts(
         gen, scene, source, grid, n_per_pos, cfg, pos_chunk,
         centers_normals, device=device)
-    if int(overflow):
+    overflow = host_int(overflow)
+    if overflow:
         raise RuntimeError(
-            f"retrace overflow: {int(overflow)} rays unfinished — "
+            f"retrace overflow: {overflow} rays unfinished — "
             "statistically impossible at the planned capacities; investigate")
     return counts
 
@@ -353,34 +362,42 @@ def fluxmap_retrace_binomial(
     stages, each ended by a device sync: ``trace_s`` (the shared trace
     with its rim post-pass), ``score_s`` (the scoring chunks) and
     ``draw_s``; and ``compaction_overflow``, the exits the scorer's
-    buffer could not hold."""
+    buffer could not hold.
+
+    The span ``map.binomial``; its stages are the spans ``trace``,
+    ``score`` and ``score.draw``.  A span never syncs: the ``stats`` laps
+    keep their own synced clock."""
     from .trace_waves import trace_rays_auto
 
     if oversample < 2:
         raise ValueError("oversample must be >= 2: the shared "
                          "sample must exceed the per-position count")
-    lap = _lap_clock(stats, device)
-    M = int(oversample) * int(n_per_pos)
-    cap = exit_capacity(scene, M)
-    if pos_chunk is None:
-        pos_chunk = binomial_pos_chunk(cap)
-    if qmc and not cfg.qmc:
-        cfg = dataclasses.replace(cfg, qmc=1)
-    k_trace, k_draw = split(fold_in(gen, 0x51), 2)
-    res, rim = trace_rays_auto(k_trace, scene, source, M, cfg, device=device)
-    lap("trace_s")
-    counts_M, overflow = fluxmap_trace_once_compact(
-        res, grid, cap, scene.exit_port_z, pos_chunk, method)
-    lap("score_s")
-    cells = binomial_cells_from_counts(k_draw, counts_M, overflow, M,
-                                       n_per_pos, grid.n_positions)
-    lap("draw_s")
-    if stats is not None:
-        stats["compaction_overflow"] = int(overflow)
-    if int(rim.total):
+    with span("map.binomial"):
+        lap = _lap_clock(stats, device)
+        M = int(oversample) * int(n_per_pos)
+        cap = exit_capacity(scene, M)
+        if pos_chunk is None:
+            pos_chunk = binomial_pos_chunk(cap)
+        if qmc and not cfg.qmc:
+            cfg = dataclasses.replace(cfg, qmc=1)
+        k_trace, k_draw = split(fold_in(gen, 0x51), 2)
+        res, rim = trace_rays_auto(k_trace, scene, source, M, cfg,
+                                   device=device)
+        lap("trace_s")
+        counts_M, overflow = fluxmap_trace_once_compact(
+            res, grid, cap, scene.exit_port_z, pos_chunk, method)
+        lap("score_s")
+        with span("score.draw"):
+            cells = binomial_cells_from_counts(k_draw, counts_M, overflow, M,
+                                               n_per_pos, grid.n_positions)
+        lap("draw_s")
+        if stats is not None:
+            stats["compaction_overflow"] = host_int(overflow)
+        rim_total = host_int(rim.total)
+    if rim_total:
         raise RuntimeError(
-            f"binomial retrace: {int(rim.total)} rim-clipped rays unfinished "
-            "— statistically impossible at the planned capacity; investigate")
+            f"binomial retrace: {rim_total} rim-clipped rays unfinished — "
+            "statistically impossible at the planned capacity; investigate")
     return cells
 
 

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..config import SphereScene, Source, TraceConfig
+from ..io.profiling import count, host_bool, host_int, span
 from .geometry import Vec3, ray_box_exit_t, sphere_hit
 from .sampling import scatter
 
@@ -55,7 +56,7 @@ class RimOverflow(NamedTuple):
     grouped_drops: torch.Tensor  # [] int32
 
     def __int__(self) -> int:
-        return int(self.total)
+        return host_int(self.total)
 
 
 def no_overflow(device) -> RimOverflow:
@@ -246,12 +247,26 @@ def make_bounce_step(gen: torch.Generator, scene: SphereScene, n_rays: int,
 def _while_trace(step_fn, carry, max_iters: int, block: int):
     """Run ``step_fn(it, carry)`` until ``max_iters`` or every lane is dead
     (``carry[3]`` is the status vector).  The alive check is a
-    device-to-host sync, so it runs once per ``block`` iterations."""
-    it = 0
-    while it < max_iters and bool((carry[3] == RUNNING).any()):
-        for j in range(block):
-            carry = step_fn(it + j, carry)
-        it += block
+    device-to-host sync, so it runs once per ``block`` iterations.
+
+    The span ``loop.eager``; while tracing, each step also adds the lanes
+    running at its start to a per-lane count (a compare and an add), and
+    the loop sums that count once (``lane_steps_live``)."""
+    n = carry[3].shape[0]
+    with span("loop.eager", width=n, block=block) as sp:
+        live = torch.zeros_like(carry[3]) if sp.on else None
+        it = 0
+        while it < max_iters and host_bool((carry[3] == RUNNING).any()):
+            for j in range(block):
+                if live is not None and it + j < max_iters:
+                    live += carry[3] == RUNNING
+                carry = step_fn(it + j, carry)
+            it += block
+        if live is not None:
+            steps = min(it, max_iters)
+            sp.set(iterations=steps)
+            count("lane_steps_issued", n * steps)
+            count("lane_steps_live", live.sum())
     return carry
 
 
@@ -525,8 +540,11 @@ def trace_rays_rim_deferred(
     Returns ``(TraceResult, RimOverflow)``; ``RimOverflow.total`` counts
     clipped rays beyond the buffer, left as optimistic EXITED, and the
     rays the main tracer and the waves continuation lost.
+
+    Spans: ``trace.main`` (step 1), ``trace.rim`` (steps 2-4, with the
+    buffer's width ``m``) and inside it ``trace.rim.cont`` (the
+    continuation, with its ``kind``: ``hybrid``, ``waves`` or ``eager``).
     """
-    from .geometry import cone_crossing_t, cone_face_normal
     from .trace_direct import direct_applicable
 
     if cfg.keep_history:
@@ -535,12 +553,31 @@ def trace_rays_rim_deferred(
         # _compact_gather carries bounce counts through a float32 mantissa
         raise ValueError("max_bounces >= 2^24 would corrupt bounce counts "
                          "in the deferred-rim pack")
-    dtype = cfg.dtype
     k_main, k_first, k_cont = split(gen, 3)
     main = main_tracer if main_tracer is not None else lossless(trace_rays)
-    res, main_overflow = main(k_main, scene.with_(exact_rim=False), source,
-                              n_rays, cfg, device=device)
+    with span("trace.main"):
+        res, main_overflow = main(k_main, scene.with_(exact_rim=False),
+                                  source, n_rays, cfg, device=device)
+    m = min(n_rays, max(256, n_rays >> capacity_shift))
+    if cfg.engine in ("auto", "direct") and direct_applicable(scene, cfg):
+        kind = "hybrid"
+    elif m >= _WAVES_CONTINUATION_MIN:
+        kind = "waves"
+    else:
+        kind = "eager"
+    with span("trace.rim", m=m):
+        return _rim_post_pass(res, main_overflow, scene, n_rays, m, kind,
+                              cfg, k_first, k_cont, device)
 
+
+def _rim_post_pass(res, main_overflow, scene, n_rays, m, kind, cfg, k_first,
+                   k_cont, device):
+    """Steps 2-4 of ``trace_rays_rim_deferred`` over the main trace
+    ``res``, with an ``m``-lane buffer and the continuation ``kind``
+    (``hybrid``, ``waves`` or ``eager``)."""
+    from .geometry import cone_crossing_t, cone_face_normal
+
+    dtype = cfg.dtype
     radius = f32(scene.inner_radius)
     r_out = f32(scene.outer_radius)
     cos_tm = cos_theta_max(scene)
@@ -551,7 +588,6 @@ def trace_rays_rim_deferred(
     clipped = (res.status == EXITED) & (s_rim < INF)
     rim_pt = q + res.direction.scale(s_rim)
 
-    m = min(n_rays, max(256, n_rays >> capacity_shift))
     n_overflow = torch.clamp(clipped.sum(dtype=torch.int32) - m, min=0)
     idx, valid, (c_pt, c_dir, c_prev), (c_b,), dropped = _compact_gather(
         clipped, [rim_pt, res.direction, res.seg_start], [res.n_bounces],
@@ -570,14 +606,29 @@ def trace_rays_rim_deferred(
     in_gap0 = valid & survive
 
     carry = (c_pt, c_dir, c_prev, status0, c_bounces, in_gap0)
-    max_iters = int(scene.max_bounces)
+    with span("trace.rim.cont", kind=kind):
+        pos, direction, prev, status, bounces, n_cont = _rim_continuation(
+            kind, k_cont, scene, carry, cfg, m, radius, r_out, cos_tm, INF,
+            device)
 
-    if cfg.engine in ("auto", "direct") and direct_applicable(scene, cfg):
-        (pos, direction, prev, status, bounces,
-         n_overflow2) = _rim_continuation_hybrid(
-            k_cont, scene, carry, cfg, radius, r_out, cos_tm, INF, device)
-        n_overflow = n_overflow + n_overflow2
-    elif m >= _WAVES_CONTINUATION_MIN:
+    if n_cont is not None:
+        n_overflow = n_overflow + n_cont
+    sidx = torch.where(valid, idx, n_rays)
+    return (_put_result(res, sidx, TraceResult(status, pos, prev, direction,
+                                               bounces)),
+            RimOverflow(total=n_overflow, grouped_drops=dropped))
+
+
+def _rim_continuation(kind, k_cont, scene, carry, cfg, m, radius, r_out,
+                      cos_tm, INF, device):
+    """Finish the rim buffer's lanes from ``carry``: ``(pos, direction,
+    prev, status, bounces, n_overflow)``, ``n_overflow`` None where the
+    continuation loses no ray (the eager loop)."""
+    max_iters = int(scene.max_bounces)
+    if kind == "hybrid":
+        return _rim_continuation_hybrid(k_cont, scene, carry, cfg, radius,
+                                        r_out, cos_tm, INF, device)
+    if kind == "waves":
         # a wide continuation wave-compacts its tail: after the gap
         # resolves only re-entrant lanes survive, and the eager loop would
         # run the whole bounce tail at width m.  A schedule too tight for
@@ -589,21 +640,14 @@ def trace_rays_rim_deferred(
             k_cont, scene, carry, cfg, wave_iters=RIM_CONT_WAVE_ITERS,
             shrink=RIM_CONT_SHRINK, min_wave=16384,
             first_wave_iters=RIM_CONT_FIRST_WAVE, device=device)
-        pos, direction, prev = (res_c.last_point, res_c.direction,
-                                res_c.seg_start)
-        status, bounces = res_c.status, res_c.n_bounces
-        n_overflow = n_overflow + cont_ovf
-    else:
-        step = make_bounce_step(k_cont, scene, m, cfg, device)
-        block = max(1, min(int(cfg.block_iters), max_iters))
-        pos, direction, prev, status, bounces, _ = _while_trace(
-            step, carry, max_iters, block)
-        status = torch.where(status == RUNNING, SUSPENDED, status)
-
-    sidx = torch.where(valid, idx, n_rays)
-    return (_put_result(res, sidx, TraceResult(status, pos, prev, direction,
-                                               bounces)),
-            RimOverflow(total=n_overflow, grouped_drops=dropped))
+        return (res_c.last_point, res_c.direction, res_c.seg_start,
+                res_c.status, res_c.n_bounces, cont_ovf)
+    step = make_bounce_step(k_cont, scene, m, cfg, device)
+    block = max(1, min(int(cfg.block_iters), max_iters))
+    pos, direction, prev, status, bounces, _ = _while_trace(
+        step, carry, max_iters, block)
+    return (pos, direction, prev,
+            torch.where(status == RUNNING, SUSPENDED, status), bounces, None)
 
 
 def exit_count(result: TraceResult, exit_port_z=-100.0) -> torch.Tensor:

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config import SphereScene, Source, SurfaceModel, TraceConfig
+from ..io.profiling import count, host_bool, span
 from . import _build
 from .geometry import Vec3
 from .compact import nonzero_indices_grouped
@@ -42,12 +43,6 @@ KERNELS = {
                "altair_tpu/core/trace_pallas.py:399"),
 }
 
-# launches of each kernel since the last reset: a run shows it went through
-# the kernel by reading these, and ``launch_sizes`` holds the ray counts
-# (n) those launches took
-launch_counts = {"bounce": 0, "refill": 0}
-launch_sizes: dict[str, set] = {"bounce": set(), "refill": set()}
-
 # lanes of one refill unit: a warp's pool and the handoff unit
 # (csrc/refill.cu LANES)
 REFILL_LANES = 128
@@ -59,12 +54,6 @@ REFILL_THREADS = 32
 REFILL_MIN = 1 << 20
 _REFILL_BUDGET = 4
 _REFILL_HANDOFF = 0.01
-
-
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
-        launch_sizes[name].clear()
 
 
 _COS_N_ROUNDS = 12
@@ -348,7 +337,7 @@ def bounce_plain(seed, scene_vec, src_vec, n: int, model, max_bounces: int,
     bounces = torch.zeros((n,), dtype=torch.int32, device=dev)
 
     it = 0
-    while it < max_bounces and bool((status == RUNNING).any()):
+    while it < max_bounces and host_bool((status == RUNNING).any()):
         for _ in range(min(INNER_ITERS, max_bounces - it)):
             active = status == RUNNING
             b = px * dx + py * dy + pz * dz
@@ -415,7 +404,7 @@ def _bounce_cuda(seed, scene_vec, src_vec, n, model, max_bounces, rng):
            + [torch.empty((n,), dtype=torch.int32, device=dev)])
     if n:
         fn = _bounce_fn()
-        with torch.cuda.device(dev):
+        with span("kernel.bounce", n=n), torch.cuda.device(dev):
             err = fn(scene_vec.data_ptr(), src_vec.data_ptr(),
                      int(seed[0]) & _M32, int(seed[1]) & _M32,
                      int(max_bounces), int(model), int(rng == "hash"), n,
@@ -423,8 +412,8 @@ def _bounce_cuda(seed, scene_vec, src_vec, n, model, max_bounces, rng):
                      torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"bounce kernel launch failed: CUDA error {err}")
-        launch_counts["bounce"] += 1
-        launch_sizes["bounce"].add(n)
+        count("kernel.bounce.launches")
+        count("kernel.bounce.rays", n)
     (status, lx, ly, lz, sx, sy, sz, dx, dy, dz, bounces) = out
     return TraceResult(status, Vec3(lx, ly, lz), Vec3(sx, sy, sz),
                        Vec3(dx, dy, dz), bounces)
@@ -607,7 +596,7 @@ def refill_plain(seed, scene_vec, src_vec, n: int, model, max_bounces: int,
         rem = ((budget - ray_idx).view(m, threads).sum(1)
                + budget * (lanes - nxt))
         leave = (rem <= thresh) | (step >= cap)
-        if bool(leave.any()):
+        if host_bool(leave.any()):
             tl = leave.repeat_interleave(threads)
             if live is not None:
                 # taken lanes are spent unless a thread holds them
@@ -700,7 +689,7 @@ def _refill_cuda(seed, scene_vec, src_vec, n, model, max_bounces, budget,
         fn = _refill_fn()
         live_ptrs = ([t.data_ptr() for t in live] if live is not None
                      else [None] * 8)
-        with torch.cuda.device(dev):
+        with span("kernel.refill", n=n), torch.cuda.device(dev):
             err = fn(scene_vec.data_ptr(), src_vec.data_ptr(),
                      int(seed[0]) & _M32, int(seed[1]) & _M32,
                      int(max_bounces), int(model), int(rng == "hash"), n,
@@ -708,8 +697,8 @@ def _refill_cuda(seed, scene_vec, src_vec, n, model, max_bounces, budget,
                      *live_ptrs, torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"refill kernel launch failed: CUDA error {err}")
-        launch_counts["refill"] += 1
-        launch_sizes["refill"].add(n)
+        count("kernel.refill.launches")
+        count("kernel.refill.rays", n)
     (status, lx, ly, lz, sx, sy, sz, dx, dy, dz, bounces) = out
     res = TraceResult(status, Vec3(lx, ly, lz), Vec3(sx, sy, sz),
                       Vec3(dx, dy, dz), bounces)
@@ -863,37 +852,39 @@ def _refill_handoff_continue(gen, scene, cfg, res, live: LiveState, src_vec,
     At the 4096 cap that needs a ray of more than 4096 bounces (P < 1e-15),
     the same slack as the deferred-rim continuation's.
 
-    Returns ``(TraceResult, n_overflow)``."""
+    The span ``trace.straggler``, with the lane capacity ``cap``.  Returns
+    ``(TraceResult, n_overflow)``."""
     from .trace_waves import trace_waves_from_state
 
     n = res.status.shape[0]
     per_unit = budget * REFILL_LANES
     cap = (n // per_unit) * thresh
-    pending = res.status == RUNNING
-    idx, dropped = nonzero_indices_grouped(pending, cap, n,
-                                           group_capacity=cap)
-    valid = idx < n
-    safe = torch.clamp(idx, max=n - 1)
-    unit = safe // per_unit
-    rem = safe - unit * per_unit
-    slot = rem // REFILL_LANES
-    lane = unit * REFILL_LANES + (rem - slot * REFILL_LANES)
-    is_live = valid & (slot == live.ray_idx[lane])
+    with span("trace.straggler", cap=cap):
+        pending = res.status == RUNNING
+        idx, dropped = nonzero_indices_grouped(pending, cap, n,
+                                               group_capacity=cap)
+        valid = idx < n
+        safe = torch.clamp(idx, max=n - 1)
+        unit = safe // per_unit
+        rem = safe - unit * per_unit
+        slot = rem // REFILL_LANES
+        lane = unit * REFILL_LANES + (rem - slot * REFILL_LANES)
+        is_live = valid & (slot == live.ray_idx[lane])
 
-    def pick(plane, src_value):
-        return torch.where(is_live, plane[lane], src_value)
+        def pick(plane, src_value):
+            return torch.where(is_live, plane[lane], src_value)
 
-    pos = Vec3(*(pick(p, src_vec[i]) for i, p in enumerate(live.pos)))
-    dirv = Vec3(*(pick(d, src_vec[3 + i])
-                  for i, d in enumerate(live.direction)))
-    bounces0 = _i32(torch.where(is_live, live.bounces[lane], 0))
-    status0 = _i32(torch.where(valid, RUNNING, ABSORBED))
-    carry = (pos, dirv, pos, status0, bounces0,
-             torch.zeros((cap,), dtype=torch.bool, device=device))
-    cont, n_overflow = trace_waves_from_state(gen, scene, carry, cfg,
-                                              device=device)
-    return (_put_result(res, torch.where(valid, idx, n), cont),
-            n_overflow + dropped)
+        pos = Vec3(*(pick(p, src_vec[i]) for i, p in enumerate(live.pos)))
+        dirv = Vec3(*(pick(d, src_vec[3 + i])
+                      for i, d in enumerate(live.direction)))
+        bounces0 = _i32(torch.where(is_live, live.bounces[lane], 0))
+        status0 = _i32(torch.where(valid, RUNNING, ABSORBED))
+        carry = (pos, dirv, pos, status0, bounces0,
+                 torch.zeros((cap,), dtype=torch.bool, device=device))
+        cont, n_overflow = trace_waves_from_state(gen, scene, carry, cfg,
+                                                  device=device)
+        return (_put_result(res, torch.where(valid, idx, n), cont),
+                n_overflow + dropped)
 
 
 def _slice(res: TraceResult, n: int) -> TraceResult:

@@ -16,12 +16,12 @@ parity is statistical.
 
 from __future__ import annotations
 
-import collections
 import numbers
 
 import torch
 
 from ..config import SphereScene, Source, TraceConfig
+from ..io.profiling import count, span
 from .compact import nonzero_indices
 from .geometry import Vec3
 from .trace import (ABSORBED, RUNNING, SUSPENDED, RimOverflow, TraceResult,
@@ -29,14 +29,9 @@ from .trace import (ABSORBED, RUNNING, SUSPENDED, RimOverflow, TraceResult,
                     lossless, make_bounce_step, no_overflow,
                     rim_deferred_capacity_shift, split, trace_rays,
                     trace_rays_rim_deferred)
+from . import trace_cuda
 from .trace_cuda import kernel_applicable, trace_rays_fast
 from .trace_direct import direct_applicable, trace_rays_direct
-
-# the plans that trace_waves_from_state ran, newest last (the last 16
-# calls): {"width", "waves", "tail"} as wave_schedule gives them.  A
-# caller clears it before a run and reads it after, as it does
-# trace_cuda.launch_counts.
-wave_plans: collections.deque = collections.deque(maxlen=16)
 
 
 def wave_schedule(n_rays: int, max_iters: int, wave_iters: int = 256,
@@ -105,18 +100,40 @@ def trace_waves_from_state(
     ``first_wave_iters`` (None = ``wave_iters``) shortens wave 0 only, for
     an entry state that is mostly dead lanes.  The tail caps its bounce
     budget at the iterations that remain.  Returns ``(TraceResult,
-    n_overflow)``."""
+    n_overflow)``.
+
+    The span ``loop.waves``, with the batch's ``width`` and the plan
+    (``waves``, ``tail``) of ``wave_schedule``; the eager tail is its own
+    ``loop.eager``.  While tracing, the waves count their lane-steps as
+    ``_while_trace`` does: a compare and an add a step, one sum a call."""
     n_rays = state[0].x.shape[0]
     waves, tail = wave_schedule(n_rays, int(scene.max_bounces), wave_iters,
                                 shrink, min_wave, first_wave_iters)
-    wave_plans.append({"width": n_rays, "waves": waves, "tail": tail})
+    with span("loop.waves", width=n_rays, waves=waves, tail=tail) as sp:
+        live = [] if sp.on else None
+        out = _waves(gen, scene, state, cfg, waves, tail, live, device)
+        if live is not None:
+            count("lane_steps_issued", sum(m * it for m, it in waves))
+            count("lane_steps_live", torch.cat(live).sum())
+    return out
+
+
+def _waves(gen, scene, state, cfg, waves, tail, live, device):
+    """``trace_waves_from_state``'s body; ``live``, when a list, receives
+    each wave's per-lane count of running steps."""
+    n_rays = state[0].x.shape[0]
     n_overflow = torch.zeros((), dtype=torch.int32, device=device)
 
     def run_wave(m, iters, carry):
         (wkey,) = split(gen, 1)
         step = make_bounce_step(wkey, scene, m, cfg, device)
+        acc = torch.zeros_like(carry[3]) if live is not None else None
         for it in range(iters):
+            if acc is not None:
+                acc += carry[3] == RUNNING
             carry = step(it, carry)
+        if acc is not None:
+            live.append(acc)
         return carry
 
     # wave 0 over the full batch, in the batch's own order
@@ -215,15 +232,28 @@ def trace_rays_auto(
     check them.  Path history (``cfg.keep_history``) runs the eager
     ``trace_rays``, the only tracer with a history buffer; a custom scatter
     callable is no static law, so it runs the waves or eager tracers.
+
+    The span ``trace``, with ``n_rays`` and the ``route`` taken:
+    ``direct``, ``bounce`` or ``refill`` (the kernels), ``waves`` or
+    ``eager``.
     """
     if cfg.engine not in ("auto", "simulate", "direct"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
+    with span("trace", n_rays=n_rays) as sp:
+        return _dispatch(sp, gen, scene, source, n_rays, cfg,
+                         waves_threshold, device)
+
+
+def _dispatch(sp, gen, scene, source, n_rays, cfg, waves_threshold, device):
+    """``trace_rays_auto``'s engine choice; names the route on ``sp``."""
     if cfg.keep_history:
         if cfg.engine == "direct":
             raise ValueError("direct sampling has no path history")
+        sp.set(route="eager")
         return (trace_rays(gen, scene, source, n_rays, cfg, device=device),
                 no_overflow(device))
     if cfg.engine in ("auto", "direct") and direct_applicable(scene, cfg):
+        sp.set(route="direct")
         if not scene.exact_rim:
             return (trace_rays_direct(gen, scene, source, n_rays, cfg,
                                       device=device), no_overflow(device))
@@ -239,8 +269,11 @@ def trace_rays_auto(
             "engine='direct' requires a statically-Lambertian scene whose "
             "rim (if exact_rim) admits the deferred post-pass")
     if kernel_applicable(scene, cfg):
+        sp.set(route="refill" if n_rays >= trace_cuda.REFILL_MIN
+               else "bounce")
         return trace_rays_fast(gen, scene, source, n_rays, cfg, device=device)
     use_waves = n_rays >= waves_threshold and waves_safe(scene)
+    sp.set(route="waves" if use_waves else "eager")
     shift = rim_deferred_capacity_shift(scene) if scene.exact_rim else None
     if shift is not None:
         return trace_rays_rim_deferred(

@@ -8,8 +8,12 @@ from .csvdialect import (  # noqa: F401
 )
 from .profiling import (  # noqa: F401
     PhaseTimer,
-    annotate,
+    clear,
+    count,
     device_busy_s,
     device_trace,
+    records,
+    span,
+    tracing,
 )
 from .progress import EtaTracker, debug_stamp, notify_bell, position_line  # noqa: F401

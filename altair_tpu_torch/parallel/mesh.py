@@ -56,6 +56,7 @@ from ..core.score import (binomial_cells_from_counts, binomial_pos_chunk,
                           z_angle_histogram)
 from ..core.trace import TraceResult, fold_in, split
 from ..core.trace_waves import trace_rays_auto
+from ..io.profiling import host_int
 
 _SUMMED = (torch.int32, torch.int64)
 
@@ -247,9 +248,10 @@ def _reduce(mesh: Mesh, *parts: torch.Tensor) -> list[torch.Tensor]:
 def _raise_on_overflow(route: str, overflow) -> None:
     """``overflow`` is already reduced, so every rank takes the same
     branch."""
-    if int(overflow):
+    overflow = host_int(overflow)
+    if overflow:
         raise RuntimeError(
-            f"{route}: {int(overflow)} rays unscored or unfinished over the "
+            f"{route}: {overflow} rays unscored or unfinished over the "
             "mesh — statistically impossible at the planned capacities; "
             "investigate")
 
@@ -504,7 +506,7 @@ def sharded_retrace_binomial(
     _raise_on_overflow("sharded_retrace_binomial", rim_total)
     if stats is not None:
         stats["counts_M"] = counts
-        stats["compaction_overflow"] = int(overflow)
+        stats["compaction_overflow"] = host_int(overflow)
     return binomial_cells_from_counts(k_draw, counts, overflow, M,
                                       n_rays_per_pos, grid.n_positions)
 

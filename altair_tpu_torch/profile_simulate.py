@@ -18,14 +18,19 @@ Traces N rays (default 4,194,304) of the production scene
 
 One warm run of each, then R rounds in turns (A B C D, D C B A, ...).  A
 run records its wall time (host clock, up to a device sync and the
-exit-count readback) and its stages: ``main_trace`` (``_kernel_padded``),
-``straggler_finish`` (``_refill_handoff_continue``, part of the main
-trace) and ``rim_post_pass`` (the rest: clip test, compactions, rim
-continuation, readback).  The stage wrappers sync the device at their
-edges.  Then one ``torch.profiler`` run of each variant, with the stage
-wrappers off, gives the device's busy time (the union of its activity
-intervals) and its activity count.  Prints one JSON line per variant;
-``--out`` also writes them to a file.
+exit-count readback) under the program's tracer (``io.profiling``), and
+from its records: ``stages_s``, the host seconds of the spans
+``trace.main``, ``trace.straggler`` (inside the main trace) and
+``trace.rim`` (clip test, compaction, first rim bounce, continuation,
+scatter-back); ``waves``, the plans of its ``loop.waves`` spans in call
+order; ``lane_use_pct``, 100 x live / issued lane-steps of its eager and
+waves loops; ``host_syncs``; and the kernels' launches.  A span does not
+sync the device: work one stage launches can finish inside the next
+stage's first device read (the rim continuation's alive checks).  Then
+one ``torch.profiler`` run of each variant, tracer off, gives the
+device's busy time (the union of its activity intervals) and its activity
+count.  Prints one JSON line per variant; ``--out`` also writes them to a
+file.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import torch
 
 VARIANTS = ("A_dispatch", "B_no_handoff", "C_bounce", "D_eager_rim")
 MAX_BOUNCES = 4096
+STAGES = ("trace.main", "trace.straggler", "trace.rim")
 
 
 @contextlib.contextmanager
@@ -63,35 +69,6 @@ def variant(name: str, n: int):
          trace._WAVES_CONTINUATION_MIN) = saved
 
 
-@contextlib.contextmanager
-def stage_timers(device, stages: dict):
-    """Time the main trace and the straggler finish into ``stages``
-    (seconds, summed over calls)."""
-    from .core import trace_cuda
-
-    names = {"main_trace": "_kernel_padded",
-             "straggler_finish": "_refill_handoff_continue"}
-    saved = {f: getattr(trace_cuda, f) for f in names.values()}
-
-    def timed(stage, fn):
-        def run(*args, **kwargs):
-            torch.cuda.synchronize(device)
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize(device)
-            stages[stage] = stages.get(stage, 0.0) + time.perf_counter() - t0
-            return out
-        return run
-
-    for stage, f in names.items():
-        setattr(trace_cuda, f, timed(stage, saved[f]))
-    try:
-        yield
-    finally:
-        for f, fn in saved.items():
-            setattr(trace_cuda, f, fn)
-
-
 def trace_once(device, n: int, seed: int):
     """One simulate-engine trace; returns (wall seconds, exit fraction)."""
     from . import SCENE_OPTIMIZE, SOURCE_OVERNIGHT, TraceConfig, trace_rays_auto
@@ -111,15 +88,25 @@ def trace_once(device, n: int, seed: int):
 
 
 def staged_run(device, n: int, seed: int) -> dict:
-    from .core import trace_waves
+    from .io import profiling
 
-    stages: dict = {}
-    trace_waves.wave_plans.clear()
-    with stage_timers(device, stages):
+    profiling.clear()
+    with profiling.tracing():
         wall, frac = trace_once(device, n, seed)
-    stages["rim_post_pass"] = wall - stages["main_trace"]
+    rec = profiling.records()
+    stages = dict.fromkeys(STAGES, 0.0)
+    for s in rec["spans"]:
+        if s["name"] in stages:
+            stages[s["name"]] += (s["end_ns"] - s["start_ns"]) * 1e-9
+    tot = rec["totals"]
     return {"wall_s": wall, "exit_fraction": frac, "stages_s": stages,
-            "waves": list(trace_waves.wave_plans)}
+            "waves": [{k: s["attrs"][k] for k in ("width", "waves", "tail")}
+                      for s in rec["spans"] if s["name"] == "loop.waves"],
+            "lane_use_pct": 100.0 * tot.get("lane_steps_live", 0)
+            / max(tot.get("lane_steps_issued", 0), 1),
+            "host_syncs": tot.get("host_syncs", 0),
+            "launches": {k: tot.get(f"kernel.{k}.launches", 0)
+                         for k in ("bounce", "refill")}}
 
 
 def profiled_run(device, n: int, seed: int) -> dict:

@@ -16,6 +16,7 @@ import torch
 from ..config import SphereScene, Source, TraceConfig
 from ..core.score import exit_angle_histogram, exit_directions, z_angle_histogram
 from ..core.trace_waves import trace_rays_auto
+from ..io.profiling import host_int
 
 
 @dataclasses.dataclass
@@ -84,8 +85,9 @@ def run_distribution(
         mask, dx, dy, dz = exit_directions(res, scene.exit_port_z)
         ang = exit_angle_histogram(res, exit_port_z=scene.exit_port_z)
         dzh = z_angle_histogram(dz, mask)
-        if int(rim.total):
-            raise RuntimeError(f"distribution: {int(rim.total)} rim-clipped "
+        rim_total = host_int(rim.total)
+        if rim_total:
+            raise RuntimeError(f"distribution: {rim_total} rim-clipped "
                                "rays unfinished; investigate")
     m = mask.cpu().numpy()
     dirs = (torch.stack([dx, dy, dz], 1).cpu().numpy()[m]

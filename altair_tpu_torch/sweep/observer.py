@@ -40,6 +40,7 @@ from ..core.trace import fold_in
 from ..core.trace_waves import trace_rays_auto
 from ..io import (EtaTracker, FluxmapMetadata, FluxmapWriter, debug_stamp,
                   fluxmap_filename, notify_bell, read_fluxmap)
+from ..io.profiling import host_int
 from ..parallel.mesh import is_rank0, on_rank0
 
 
@@ -150,13 +151,14 @@ def sweep_detector_trace_once(
 
     t1 = time.perf_counter()
     counts, n_exit, overflow = run_score(res)
-    n_exit = int(n_exit)
+    n_exit = host_int(n_exit)
     fm = counts.cpu().numpy().astype(np.float64) / n_rays
     t_score = time.perf_counter() - t1
-    if int(overflow) or int(rim_overflow):
+    overflow, rim_overflow = host_int(overflow), host_int(rim_overflow)
+    if overflow or rim_overflow:
         raise RuntimeError(
-            f"overflow: {int(overflow)} exit rays unscored, "
-            f"{int(rim_overflow)} rim-clipped rays unfinished — "
+            f"overflow: {overflow} exit rays unscored, "
+            f"{rim_overflow} rim-clipped rays unfinished — "
             "statistically impossible at the planned capacities; investigate")
     if verbose:
         debug_stamp(f"Detector sweep completed in {t_score:.4f} s")
@@ -205,8 +207,9 @@ def fluxmap_replicates(
         c, ovf = fluxmap_trace_once_compact(res, grid, cap, scene.exit_port_z)
         counts.append(c)
         overflow = overflow + ovf + rim.total
-    if int(overflow):
-        raise RuntimeError(f"replicates: {int(overflow)} rays unscored or "
+    overflow = host_int(overflow)
+    if overflow:
+        raise RuntimeError(f"replicates: {overflow} rays unscored or "
                            "unfinished — statistically impossible at the "
                            "planned capacities; investigate")
     frac = torch.stack(counts).cpu().numpy().astype(np.float64) / n_rays

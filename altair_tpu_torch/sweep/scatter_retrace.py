@@ -41,6 +41,7 @@ from ..core.trace import (EXITED, RUNNING, SUSPENDED, TraceResult, _i32,
                           _source_rays, _while_trace, device_generator, f32,
                           make_bounce_step, split)
 from ..core.trace_waves import trace_rays_auto
+from ..io.profiling import host_int
 
 
 def _retrace_from(gen, scene, pos: Vec3, direction: Vec3, n_rays, cfg, *,
@@ -146,9 +147,10 @@ def sweep_scatter_retrace(
         res, overflow = trace_scatter_retrace(key, scene, source, n_rays,
                                               cfg, device=device)
         counts = fluxmap_trace_once(res, grid, scene.exit_port_z)
-        if int(overflow):
+        overflow = host_int(overflow)
+        if overflow:
             raise RuntimeError(
-                f"scatter-retrace: {int(overflow)} rays unfinished in stage "
+                f"scatter-retrace: {overflow} rays unfinished in stage "
                 "1 — statistically impossible at the planned capacities; "
                 "investigate")
     return ScatterRetraceSweep(

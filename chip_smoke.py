@@ -58,6 +58,7 @@ device.  Imports no JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -93,6 +94,24 @@ def check(cond, msg: str) -> None:
 def sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def launches() -> dict:
+    """Each kernel's launches since the tracer's last ``clear()``."""
+    from altair_tpu_torch.io import profiling
+
+    tot = profiling.records()["totals"]
+    return {k: tot.get(f"kernel.{k}.launches", 0)
+            for k in ("bounce", "refill")}
+
+
+def launch_sizes(kernel: str) -> list:
+    """The sizes of the ``kernel`` launches traced since the last
+    ``clear()`` (the ``n`` of its ``kernel.*`` spans)."""
+    from altair_tpu_torch.io import profiling
+
+    return sorted({s["attrs"]["n"] for s in profiling.records()["spans"]
+                   if s["name"] == f"kernel.{kernel}"})
 
 
 def nvidia_smi() -> str:
@@ -263,25 +282,26 @@ def phase_scale(device, n=N_SCALE, seed=100, window=EXIT_WINDOW):
     """Trace-only throughput of both engines at n rays (one warm run, one
     timed run each).  The simulate engine's run is this slice's main path:
     the kernel counts are set to 0 just before it and read just after.
-    ``waves`` lists the wave tracer's plans that the timed run ran, in
-    call order: the refill handoff's straggler finish, then the rim
-    continuation."""
+    ``waves`` lists the wave tracer's plans (the ``loop.waves`` spans) of
+    the warm run, traced, in call order: the refill handoff's straggler
+    finish, then the rim continuation; the timed run is not traced."""
     from altair_tpu_torch import (SCENE_OPTIMIZE, SOURCE_OVERNIGHT,
                                   TraceConfig, trace_rays_auto)
-    from altair_tpu_torch.core import trace_cuda, trace_waves
+    from altair_tpu_torch.io import profiling
 
     scene = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES)
     out = {"phase": "scale", "n_rays": n}
     for engine in ("auto", "simulate"):
         cfg = TraceConfig(engine=engine)
-        trace_cuda.reset_launch_counts()
+        profiling.clear()
         for i in range(2):
-            trace_waves.wave_plans.clear()
             sync(device)
             t0 = time.perf_counter()
-            res, rim = trace_rays_auto(
-                torch.Generator().manual_seed(seed + i), scene,
-                SOURCE_OVERNIGHT, n, cfg, device=device)
+            with (profiling.tracing() if i == 0
+                  else contextlib.nullcontext()):
+                res, rim = trace_rays_auto(
+                    torch.Generator().manual_seed(seed + i), scene,
+                    SOURCE_OVERNIGHT, n, cfg, device=device)
             n_exit = int(res.exited_port_mask().sum())
             sync(device)
             dt = time.perf_counter() - t0
@@ -291,8 +311,11 @@ def phase_scale(device, n=N_SCALE, seed=100, window=EXIT_WINDOW):
               f"scale {engine}: exit fraction {frac} outside {window}")
         out[engine] = {"s": dt, "rays_per_s": n / dt, "exit_fraction": frac,
                        "rim_overflow": int(rim),
-                       "launches": dict(trace_cuda.launch_counts),
-                       "waves": list(trace_waves.wave_plans)}
+                       "launches": launches(),
+                       "waves": [{k: s["attrs"][k]
+                                  for k in ("width", "waves", "tail")}
+                                 for s in profiling.records()["spans"]
+                                 if s["name"] == "loop.waves"]}
     check(out["simulate"]["launches"]["refill"] > 0,
           "scale: the simulate engine never launched the refill kernel")
     check(len(out["simulate"]["waves"]) == 2,
@@ -774,7 +797,7 @@ def phase_retrace_rows(device, binom_cells, save_folder, n_per_pos=50_000,
     from altair_tpu_torch import (SCENE_OPTIMIZE, SOURCE_OVERNIGHT,
                                   DetectorGrid, TraceConfig)
     from altair_tpu_torch.core import trace_cuda
-    from altair_tpu_torch.io import read_fluxmap
+    from altair_tpu_torch.io import profiling, read_fluxmap
     from altair_tpu_torch.sweep import sweep_detector_retrace
 
     scene = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES)
@@ -785,18 +808,19 @@ def phase_retrace_rows(device, binom_cells, save_folder, n_per_pos=50_000,
     maps = {}
     for engine in ("auto", "simulate"):
         folder = os.path.join(save_folder, engine)
-        trace_cuda.reset_launch_counts()
-        r = sweep_detector_retrace(scene, SOURCE_OVERNIGHT, seed=seed,
-                                   cfg=TraceConfig(engine=engine),
-                                   save_folder=folder, **kw)
-        launches = dict(trace_cuda.launch_counts)
-        sizes = sorted(trace_cuda.launch_sizes["refill"])
+        profiling.clear()
+        with profiling.tracing():
+            r = sweep_detector_retrace(scene, SOURCE_OVERNIGHT, seed=seed,
+                                       cfg=TraceConfig(engine=engine),
+                                       save_folder=folder, **kw)
+        kernels = launches()
+        sizes = launch_sizes("refill")
         _, _, frac, _ = read_fluxmap(r.path)
         check(len(frac) == 180, f"retrace {engine}: {len(frac)} CSV rows")
         maps[engine] = r.fluxmap
         out[engine] = {"csv": r.path, "trace_s": r.trace_time_s,
                        "per_row_s": r.trace_time_s / 2,
-                       "total_s": r.total_time_s, "launches": launches,
+                       "total_s": r.total_time_s, "launches": kernels,
                        "refill_sizes": sizes}
     check(out["simulate"]["launches"]["refill"] > 0,
           "retrace_rows: the simulate engine never launched the refill "
@@ -882,7 +906,7 @@ def phase_series(device, save_folder, n=N_HEADLINE, seed=1100):
     from altair_tpu_torch import (SCENE_OPTIMIZE, SOURCE_OVERNIGHT,
                                   TraceConfig)
     from altair_tpu_torch.config import expected_exit_fraction
-    from altair_tpu_torch.core import trace_cuda
+    from altair_tpu_torch.io import profiling
     from altair_tpu_torch.sweep import (run_series, run_series_vmapped,
                                         series_folder)
 
@@ -917,17 +941,17 @@ def phase_series(device, save_folder, n=N_HEADLINE, seed=1100):
                      "map_totals": counts.sum(axis=(1, 2)).tolist()}
 
     sim_ports = [164.0, 168.0, 172.0, 176.0]
-    trace_cuda.reset_launch_counts()
+    profiling.clear()
     sync(device)
     t0 = time.perf_counter()
-    counts, exits = run_series_vmapped(scene, SOURCE_OVERNIGHT, device=device,
-                                       port_angles=sim_ports, n_rays=n,
-                                       seed=seed + 1,
-                                       cfg=TraceConfig(engine="simulate"))
+    with profiling.tracing():
+        counts, exits = run_series_vmapped(
+            scene, SOURCE_OVERNIGHT, device=device, port_angles=sim_ports,
+            n_rays=n, seed=seed + 1, cfg=TraceConfig(engine="simulate"))
     wall = time.perf_counter() - t0
-    launches = dict(trace_cuda.launch_counts)
-    check(launches["bounce"] >= len(sim_ports),
-          f"series simulate: bounce launches {launches}")
+    kernels = launches()
+    check(kernels["bounce"] >= len(sim_ports),
+          f"series simulate: bounce launches {kernels}")
     for p, e in zip(sim_ports, exits):
         f_direct = out["exact_rim"]["exit_fraction"][ports.index(p)]
         check(abs(e / n - f_direct)
@@ -935,9 +959,8 @@ def phase_series(device, save_folder, n=N_HEADLINE, seed=1100):
               f"series simulate port {p}: {e / n} vs direct {f_direct}")
     out["simulate"] = {"ports": sim_ports, "wall_s": wall,
                        "exit_fraction": (exits / n).tolist(),
-                       "launches": launches,
-                       "bounce_sizes": sorted(
-                           trace_cuda.launch_sizes["bounce"])}
+                       "launches": kernels,
+                       "bounce_sizes": launch_sizes("bounce")}
 
     root = os.path.join(save_folder, "series")
     res = run_series(scene, SOURCE_OVERNIGHT, device=device,
@@ -980,6 +1003,7 @@ def phase_insphere(device, n=N_HEADLINE, seed=1200):
     from altair_tpu_torch import (SCENE_INSPHERE, SCENE_OPTIMIZE, SOURCE_DEMO,
                                   TraceConfig)
     from altair_tpu_torch.core import trace_cuda
+    from altair_tpu_torch.io import profiling
     from altair_tpu_torch.sweep import (read_detector_sweep,
                                         sweep_insphere_detector)
 
@@ -1022,19 +1046,21 @@ def phase_insphere(device, n=N_HEADLINE, seed=1200):
     kw = dict(device=device, n_rays=n, dtheta=1.0, theta_max=3.5,
               save_path=None)
     direct = sweep_insphere_detector(thin, SOURCE_DEMO, seed=seed + 2, **kw)
-    trace_cuda.reset_launch_counts()
-    sim = sweep_insphere_detector(thin, SOURCE_DEMO, seed=seed + 3,
-                                  retrace=True, pos_chunk=16,
-                                  cfg=TraceConfig(engine="simulate"), **kw)
-    launches = dict(trace_cuda.launch_counts)
-    sizes = sorted(trace_cuda.launch_sizes["refill"])
+    profiling.clear()
+    with profiling.tracing():
+        sim = sweep_insphere_detector(thin, SOURCE_DEMO, seed=seed + 3,
+                                      retrace=True, pos_chunk=16,
+                                      cfg=TraceConfig(engine="simulate"),
+                                      **kw)
+    kernels = launches()
+    sizes = launch_sizes("refill")
     if 16 * n >= trace_cuda.REFILL_MIN:
-        check(launches["refill"] > 0,
-              f"insphere simulate chunk: launches {launches}")
+        check(kernels["refill"] > 0,
+              f"insphere simulate chunk: launches {kernels}")
     z = _sigma_apart(sim.fractions, direct.fractions, n, n)
     check(z.max() < 5, f"insphere simulate chunk: {z.max()} sigma")
     out["simulate_chunk"] = {"rays": 16 * n, "wall_s": sim.wall_time_s,
-                             "launches": launches, "refill_sizes": sizes,
+                             "launches": kernels, "refill_sizes": sizes,
                              "max_sigma": float(z.max()),
                              "direct_trace_once_s": direct.wall_time_s}
     return out
@@ -1051,6 +1077,7 @@ def phase_scatter_retrace(device, n=N_HEADLINE, seed=1300):
     from altair_tpu_torch import (SCENE_OPTIMIZE, SOURCE_OVERNIGHT,
                                   DetectorGrid, SurfaceModel)
     from altair_tpu_torch.core import trace_cuda
+    from altair_tpu_torch.io import profiling
     from altair_tpu_torch.core.score import fluxmap_trace_once
     from altair_tpu_torch.sweep import (sweep_scatter_retrace,
                                         trace_scatter_retrace)
@@ -1089,13 +1116,14 @@ def phase_scatter_retrace(device, n=N_HEADLINE, seed=1300):
                               "suspended": status[3]})
 
     mixed = scene.with_(surface_model=SurfaceModel.MIXED_BRDF)
-    trace_cuda.reset_launch_counts()
-    sw = sweep_scatter_retrace(mixed, SOURCE_OVERNIGHT, device=device,
-                               n_rays=n, seed=seed + 2)
-    launches = dict(trace_cuda.launch_counts)
-    check(launches["bounce"] > 0,
-          f"scatter_retrace mixed: stage 1 launched {launches}")
-    check(n in trace_cuda.launch_sizes["bounce"],
+    profiling.clear()
+    with profiling.tracing():
+        sw = sweep_scatter_retrace(mixed, SOURCE_OVERNIGHT, device=device,
+                                   n_rays=n, seed=seed + 2)
+    kernels = launches()
+    check(kernels["bounce"] > 0,
+          f"scatter_retrace mixed: stage 1 launched {kernels}")
+    check(n in launch_sizes("bounce"),
           "scatter_retrace mixed: the bounce kernel's size")
     sv, srcv = trace_cuda.kernel_operands(mixed.with_(exact_rim=False),
                                           SOURCE_OVERNIGHT, device)
@@ -1105,7 +1133,7 @@ def phase_scatter_retrace(device, n=N_HEADLINE, seed=1300):
     agree, err = compare(k, trace_cuda.bounce_plain(*args, rng="philox"))
     check(agree >= 0.999 and err <= 1e-3,
           f"bounce kernel vs plain, MIXED_BRDF at {n}: {agree}, {err} cm")
-    out["mixed_wall"] = {"wall_s": sw.wall_time_s, "launches": launches,
+    out["mixed_wall"] = {"wall_s": sw.wall_time_s, "launches": kernels,
                          "map_total": float(sw.fluxmap.sum()) * n,
                          "kernel_vs_plain": {"agree": agree,
                                              "max_abs_err_cm": err}}
@@ -1177,12 +1205,13 @@ def phase_history(device, out_dir, n=100, K=256, seed=1400):
     # io.profiling's device trace: the chrome trace is written and the
     # card's busy share of this eager loop read from it (the profiler's
     # own time to write and parse its events grows with the steps traced)
-    from altair_tpu_torch.io import annotate, device_busy_s, device_trace
+    from altair_tpu_torch.io import (device_busy_s, device_trace, span,
+                                     tracing)
 
     with device_trace(os.path.join(out_dir, "trace")) as log_dir:
         sync(device)
         t0 = time.perf_counter()
-        with annotate("history_trace"):
+        with tracing(), span("history_trace"):
             trace_paths(scene.with_(max_bounces=64), SOURCE_OVERNIGHT,
                         device=device, n_rays=n, seed=seed, keep_history=K)
             sync(device)
@@ -1298,7 +1327,7 @@ def phase_mesh(device, n=N_HEADLINE, n_scale=N_SCALE, n_routes=20_000,
 
     from altair_tpu_torch import (SCENE_OPTIMIZE, SOURCE_OVERNIGHT,
                                   DetectorGrid, TraceConfig, trace_rays_auto)
-    from altair_tpu_torch.core import trace_cuda
+    from altair_tpu_torch.io import profiling
     from altair_tpu_torch.core.score import (exit_capacity,
                                              fluxmap_trace_once_compact)
     from altair_tpu_torch.core.trace import fold_in
@@ -1342,11 +1371,12 @@ def phase_mesh(device, n=N_HEADLINE, n_scale=N_SCALE, n_routes=20_000,
                 return (counts, res.exited_port_mask(scene.exit_port_z).sum(),
                         ovf + rim.total)
 
-            trace_cuda.reset_launch_counts()
-            sharded()
+            profiling.clear()
+            with profiling.tracing():
+                sharded()
             (counts, n_exit), mesh_s = timed(sharded)
-            launches = dict(trace_cuda.launch_counts)
-            sizes = sorted(trace_cuda.launch_sizes["bounce"])
+            kernels = launches()
+            sizes = launch_sizes("bounce")
             single()
             (ref, ref_exit, ref_ovf), single_s = timed(single)
             frac = int(n_exit) / n
@@ -1362,17 +1392,18 @@ def phase_mesh(device, n=N_HEADLINE, n_scale=N_SCALE, n_routes=20_000,
             out[f"fluxmap_{engine}"] = {
                 "exit_fraction": frac, "map_total": int(counts.sum()),
                 "cells_equal": True, "mesh_s": mesh_s, "single_s": single_s,
-                "launches": launches, "bounce_sizes": sizes}
+                "launches": kernels, "bounce_sizes": sizes}
         check(out["fluxmap_simulate"]["launches"]["bounce"] >= 2
               and n in out["fluxmap_simulate"]["bounce_sizes"],
               "mesh: sharded_fluxmap never launched the bounce kernel")
 
         cfg = TraceConfig(engine="simulate")
-        trace_cuda.reset_launch_counts()
-        res, mesh_s = timed(lambda: sharded_trace(
-            mesh, key(), scene, SOURCE_OVERNIGHT, n_scale, cfg))
-        launches = dict(trace_cuda.launch_counts)
-        sizes = sorted(trace_cuda.launch_sizes["refill"])
+        profiling.clear()
+        with profiling.tracing():
+            res, mesh_s = timed(lambda: sharded_trace(
+                mesh, key(), scene, SOURCE_OVERNIGHT, n_scale, cfg))
+        kernels = launches()
+        sizes = launch_sizes("refill")
         exits = int(res.exited_port_mask(scene.exit_port_z).sum())
         del res
         (ref, rim), single_s = timed(lambda: trace_rays_auto(
@@ -1381,24 +1412,24 @@ def phase_mesh(device, n=N_HEADLINE, n_scale=N_SCALE, n_routes=20_000,
         ref_exits = int(ref.exited_port_mask(scene.exit_port_z).sum())
         del ref
         check(int(rim) == 0, f"mesh trace: single-device overflow {int(rim)}")
-        check(launches["refill"] >= 1 and n_scale in sizes,
+        check(kernels["refill"] >= 1 and n_scale in sizes,
               f"mesh: sharded_trace never launched the refill kernel: "
-              f"{launches} {sizes}")
+              f"{kernels} {sizes}")
         check(exits == ref_exits,
               f"mesh trace: {exits} exits vs single-device {ref_exits}")
         check(EXIT_WINDOW[0] <= exits / n_scale <= EXIT_WINDOW[1],
               f"mesh trace: exit fraction {exits / n_scale}")
         out["trace_simulate"] = {
             "n_rays": n_scale, "exits": exits, "exits_equal": True,
-            "mesh_s": mesh_s, "single_s": single_s, "launches": launches,
+            "mesh_s": mesh_s, "single_s": single_s, "launches": kernels,
             "refill_sizes": sizes}
 
         walls = {}
-        trace_cuda.reset_launch_counts()
+        profiling.clear()
         got = demo.run_routes(
             mesh, n_routes,
             lambda route, s, _: walls.__setitem__(route, round(s, 4)))
-        launches = dict(trace_cuda.launch_counts)
+        kernels = launches()
         ref, ref_s = timed(lambda: demo.reference(1, n_routes, device))
         for name, want in ref.items():
             if name.endswith("_local_exits"):
@@ -1417,7 +1448,7 @@ def phase_mesh(device, n=N_HEADLINE, n_scale=N_SCALE, n_routes=20_000,
         out["routes"] = {"n_rays": n_routes, "wall_s": walls,
                          "all_s": sum(walls.values()),
                          "reference_all_s": ref_s, "outputs": len(ref),
-                         "all_equal": True, "launches": launches}
+                         "all_equal": True, "launches": kernels}
         return out, walls
     finally:
         dist.destroy_process_group()
@@ -1505,6 +1536,7 @@ def main() -> int:
 
     from altair_tpu_torch import profile_refill
     from altair_tpu_torch.core import _build, trace_cuda
+    from altair_tpu_torch.io import profiling
 
     smi = nvidia_smi()
     t0 = time.perf_counter()
@@ -1537,15 +1569,17 @@ def main() -> int:
                         "chip_smoke")
     emit(phase_sweep(device, save))
 
-    # the main path through the kernel: counts from this run only
-    trace_cuda.reset_launch_counts()
+    # the main path through the kernel: counts from this run only (the
+    # tracer stays off: its rays total shows every launch took N_HEADLINE)
+    profiling.clear()
     sim = phase_headline(device, "simulate", seed=args.seed + 1000)
-    launches = trace_cuda.launch_counts["bounce"]
-    sim["bounce_launches"] = launches
-    sim["bounce_sizes"] = sorted(trace_cuda.launch_sizes["bounce"])
+    n_sim = launches()["bounce"]
+    sim["bounce_launches"] = n_sim
+    sim["bounce_rays"] = profiling.records()["totals"].get(
+        "kernel.bounce.rays", 0)
     emit(sim)
-    check(launches > 0, "the simulate engine never launched the kernel")
-    check(N_HEADLINE in sim["bounce_sizes"],
+    check(n_sim > 0, "the simulate engine never launched the kernel")
+    check(sim["bounce_rays"] == n_sim * N_HEADLINE,
           "the bounce kernel's timed size is not one the main path launched")
     sigma = math.hypot(direct["map_total_sigma"], sim["map_total_sigma"])
     check(abs(direct["map_total"] - sim["map_total"]) < 4 * sigma,
@@ -1591,7 +1625,7 @@ def main() -> int:
     emit(phase_mesh_two_ranks(device, os.path.join(save, "mesh_two_ranks"),
                               mesh_walls))
     path_launches = {
-        "bounce": {"headline_simulate": launches,
+        "bounce": {"headline_simulate": n_sim,
                    "mesh_fluxmap_simulate":
                        mesh_out["fluxmap_simulate"]["launches"]["bounce"],
                    "series_simulate": series["simulate"]["launches"]["bounce"],

@@ -21,6 +21,7 @@ from altair_tpu.core.trace_pallas import _fmix32, trace_rays_pallas
 from altair_tpu_torch import convert
 from altair_tpu_torch.core import trace_cuda
 from altair_tpu_torch.core.trace import EXITED
+from altair_tpu_torch.io import profiling
 
 torch.set_num_threads(1)
 
@@ -48,16 +49,21 @@ def _operands(model):
         convert.scene(scene), convert.source(SOURCE_OVERNIGHT), "cpu")
 
 
+def launches(kernel: str) -> int:
+    """The kernel's launches in this process (the tracer's process total)."""
+    return profiling.records()["totals"].get(f"kernel.{kernel}.launches", 0)
+
+
 def _hash_plain(model):
     """The port's bounce on CPU tensors (its plain version), hash stream,
     seeded with the words of ``_pallas_ref``'s key."""
     key, _ = _pallas_ref(model)
     scene_vec, src_vec = _operands(model)
-    launches = trace_cuda.launch_counts["bounce"]
+    before = launches("bounce")
     out = trace_cuda.bounce(convert.seed_words(jax.random.key_data(key)),
                             scene_vec, src_vec, N, int(model), MAX_BOUNCES,
                             rng="hash")
-    assert trace_cuda.launch_counts["bounce"] == launches  # CPU: plain path
+    assert launches("bounce") == before  # CPU: plain path
     return out
 
 

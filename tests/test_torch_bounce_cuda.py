@@ -13,6 +13,7 @@ import torch
 
 from altair_tpu_torch import SCENE_OPTIMIZE, SOURCE_OVERNIGHT, SurfaceModel
 from altair_tpu_torch.core import trace_cuda
+from altair_tpu_torch.io import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -22,6 +23,11 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def launches(kernel: str) -> int:
+    """The kernel's launches in this process (the tracer's process total)."""
+    return profiling.records()["totals"].get(f"kernel.{kernel}.launches", 0)
 
 
 @pytest.mark.parametrize("rng", ["hash", "philox"])
@@ -34,10 +40,10 @@ def test_kernel_matches_plain(cuda, model, rng):
     scene = SCENE_OPTIMIZE.with_(max_bounces=max_bounces, exact_rim=False,
                                  surface_model=model)
     sv, srcv = trace_cuda.kernel_operands(scene, SOURCE_OVERNIGHT, cuda)
-    before = trace_cuda.launch_counts["bounce"]
+    before = launches("bounce")
     k = trace_cuda.bounce((11, 22), sv, srcv, n, int(model), max_bounces, rng)
     torch.cuda.synchronize()
-    assert trace_cuda.launch_counts["bounce"] == before + 1
+    assert launches("bounce") == before + 1
     p = trace_cuda.bounce_plain((11, 22), sv, srcv, n, int(model),
                                 max_bounces, rng)
     agree = (k.status == p.status) & (k.n_bounces == p.n_bounces)

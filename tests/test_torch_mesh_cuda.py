@@ -16,6 +16,7 @@ from altair_tpu_torch.core import trace_cuda
 from altair_tpu_torch.core.score import (exit_capacity,
                                          fluxmap_trace_once_compact)
 from altair_tpu_torch.core.trace import fold_in
+from altair_tpu_torch.io import profiling
 from altair_tpu_torch.parallel import (demo, init_distributed, make_mesh,
                                        sharded_fluxmap)
 
@@ -48,10 +49,11 @@ def test_world_of_one_equals_the_single_device_run(mesh, engine):
     assert mesh.device == torch.device("cuda", torch.cuda.current_device())
     cfg = TraceConfig(engine=engine)
     key = torch.Generator().manual_seed(11)
-    trace_cuda.reset_launch_counts()
+    profiling.clear()
     counts, n_exit = sharded_fluxmap(mesh, key, SCENE, SOURCE_OVERNIGHT, GRID,
                                      N, cfg)
-    assert trace_cuda.launch_counts["bounce"] == (engine == "simulate")
+    assert (profiling.records()["totals"].get("kernel.bounce.launches", 0)
+            == (engine == "simulate"))
     res, rim = trace_rays_auto(fold_in(key, 0), SCENE, SOURCE_OVERNIGHT, N,
                                cfg, device=mesh.device)
     ref, overflow = fluxmap_trace_once_compact(

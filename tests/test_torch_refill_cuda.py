@@ -15,6 +15,7 @@ import torch
 
 from altair_tpu_torch import SCENE_OPTIMIZE, SOURCE_OVERNIGHT, SurfaceModel
 from altair_tpu_torch.core import trace_cuda
+from altair_tpu_torch.io import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -61,11 +62,14 @@ def test_kernel_matches_plain(cuda, model, rng, handoff):
     thresh = int(handoff * LANES * budget)
     sv, srcv = _operands(cuda, model, max_bounces)
     args = ((11, 22), sv, srcv, n, int(model), max_bounces, budget, thresh)
-    before = trace_cuda.launch_counts["refill"]
-    k, k_live = trace_cuda.refill(*args, rng=rng)
+    profiling.clear()
+    with profiling.tracing():
+        k, k_live = trace_cuda.refill(*args, rng=rng)
     torch.cuda.synchronize()
-    assert trace_cuda.launch_counts["refill"] == before + 1
-    assert n in trace_cuda.launch_sizes["refill"]
+    rec = profiling.records()
+    assert rec["totals"]["kernel.refill.launches"] == 1
+    assert [s["attrs"]["n"] for s in rec["spans"]
+            if s["name"] == "kernel.refill"] == [n]
     p, p_live = trace_cuda.refill_plain(*args, rng=rng)
     _assert_matches_plain(k, k_live, p, p_live)
     if thresh:

@@ -17,6 +17,7 @@ from altair_tpu_torch import (SCENE_OPTIMIZE, SOURCE_DEMO, SOURCE_OVERNIGHT,
                               DetectorGrid, SurfaceModel, TraceConfig)
 from altair_tpu_torch.config import expected_exit_fraction
 from altair_tpu_torch.core import trace_cuda
+from altair_tpu_torch.io import profiling
 from altair_tpu_torch import sweep
 
 pytestmark = pytest.mark.cuda
@@ -32,16 +33,21 @@ def cuda():
     return torch.device("cuda")
 
 
+def launches(kernel: str) -> int:
+    """The kernel's launches in this process (the tracer's process total)."""
+    return profiling.records()["totals"].get(f"kernel.{kernel}.launches", 0)
+
+
 def test_series_simulate_members_launch_the_bounce_kernel(cuda):
     """One bounce launch a member, and exit fractions that agree with the
     direct engine's members within 4 sigma."""
     n, ports = 50_000, [164.0, 170.0, 176.0]
     kw = dict(device=cuda, port_angles=ports, n_rays=n, grid=GRID, seed=1)
     _, direct = sweep.run_series_vmapped(SCENE, SOURCE_OVERNIGHT, **kw)
-    trace_cuda.reset_launch_counts()
+    profiling.clear()
     counts, exits = sweep.run_series_vmapped(
         SCENE, SOURCE_OVERNIGHT, cfg=TraceConfig(engine="simulate"), **kw)
-    assert trace_cuda.launch_counts["bounce"] == len(ports)
+    assert launches("bounce") == len(ports)
     assert counts.shape == (3, 18, 9)
     for p, e, d in zip(ports, exits, direct):
         f = d / n
@@ -59,11 +65,11 @@ def test_insphere_retrace_chunk_reaches_the_refill_kernel(cuda, monkeypatch):
     kw = dict(device=cuda, n_rays=n, dtheta=2.0, theta_max=7.0,
               disk_radius=20.0, save_path=None)
     once = sweep.sweep_insphere_detector(SCENE, SOURCE_DEMO, seed=2, **kw)
-    trace_cuda.reset_launch_counts()
+    profiling.clear()
     re = sweep.sweep_insphere_detector(
         SCENE, SOURCE_DEMO, seed=3, retrace=True, pos_chunk=8,
         cfg=TraceConfig(engine="simulate"), **kw)
-    assert trace_cuda.launch_counts == {"bounce": 0, "refill": 2}
+    assert (launches("bounce"), launches("refill")) == (0, 2)
     assert re.fractions.shape == (16,)
     pi = np.maximum((re.fractions + once.fractions) / 2, 1 / n)
     z = np.abs(re.fractions - once.fractions) / np.sqrt(2 * pi * (1 - pi) / n)
@@ -72,12 +78,12 @@ def test_insphere_retrace_chunk_reaches_the_refill_kernel(cuda, monkeypatch):
 
 def test_scatter_retrace_stage_one_through_the_bounce_kernel(cuda):
     n = 50_000
-    trace_cuda.reset_launch_counts()
+    profiling.clear()
     res, ovf = sweep.trace_scatter_retrace(
         torch.Generator().manual_seed(4),
         SCENE.with_(surface_model=SurfaceModel.MIXED_BRDF), SOURCE_OVERNIGHT,
         n, device=cuda)
-    assert trace_cuda.launch_counts["bounce"] == 1 and int(ovf) == 0
+    assert launches("bounce") == 1 and int(ovf) == 0
     assert res.status.device.type == "cuda"
     assert set(res.status.unique().tolist()) <= {1, 2, 3}
 

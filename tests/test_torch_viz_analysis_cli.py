@@ -60,7 +60,9 @@ def run_folder(tmp_path_factory):
 
 def test_public_names_match_jax():
     """Every public name of the JAX package's ``sweep``, ``viz``,
-    ``analysis``, ``io`` and ``native`` has a counterpart in the port."""
+    ``analysis``, ``io`` and ``native`` has a counterpart in the port.
+    The counterpart of the JAX ``io.annotate`` label is the tracer's
+    ``span``, which labels a running profiler while tracing is on."""
     import altair_tpu.io as jio
     import altair_tpu.sweep as jsweep
     import altair_tpu_torch.io as tio
@@ -70,7 +72,9 @@ def test_public_names_match_jax():
 
     for j, t in ((jsweep, tsweep), (jviz, tviz), (jana, tana), (jio, tio),
                  (jnative, tnative)):
-        assert public(j) - public(t) <= {"annotations"}, j.__name__
+        renamed = {"annotate"} if j is jio else set()
+        assert public(j) - public(t) <= {"annotations"} | renamed, j.__name__
+    assert {"span", "tracing"} <= public(tio)
 
 
 def test_finite_port_matches_jax():
@@ -186,7 +190,8 @@ def test_print_census_and_plot_rays(paths, tmp_path, capsys):
 
 def test_phase_timer_and_device_trace(tmp_path):
     """``PhaseTimer`` reports like the JAX package's; ``device_trace``
-    writes a chrome trace of the block with the annotated phase in it."""
+    writes a chrome trace of the block with the traced span's label in
+    it."""
     tt, jt = tprof.PhaseTimer(), jprof.PhaseTimer()
     for timer in (tt, jt):
         with timer.phase("trace"):
@@ -195,7 +200,7 @@ def test_phase_timer_and_device_trace(tmp_path):
         timer.phases["score"] = 0.5
     assert tt.report() == jt.report()
     with tprof.device_trace(str(tmp_path / "prof")) as log_dir:
-        with tprof.annotate("altair_phase"):
+        with tprof.tracing(), tprof.span("altair_phase"):
             torch.ones(8).sum()
     assert log_dir == str(tmp_path / "prof")
     trace = (tmp_path / "prof" / "trace.json").read_text()

@@ -24,6 +24,7 @@ from altair_tpu_torch import convert
 from altair_tpu_torch.core import trace_waves
 from altair_tpu_torch.core.geometry import Vec3
 from altair_tpu_torch.core.trace import ABSORBED, EXITED, RUNNING
+from altair_tpu_torch.io import profiling
 
 torch.set_num_threads(1)
 
@@ -66,14 +67,17 @@ def test_wave_schedule():
 
 def test_waves_matches_jax():
     ref, j_ovf = _jax_waves()
-    trace_waves.wave_plans.clear()
-    res, ovf = trace_waves.trace_rays_waves(
-        torch.Generator().manual_seed(4), convert.scene(SCENE),
-        convert.source(SOURCE_OVERNIGHT), N, device="cpu", **KW)
+    profiling.clear()
+    with profiling.tracing():
+        res, ovf = trace_waves.trace_rays_waves(
+            torch.Generator().manual_seed(4), convert.scene(SCENE),
+            convert.source(SOURCE_OVERNIGHT), N, device="cpu", **KW)
     assert int(ovf) == j_ovf == 0
     # the run records the plan it followed
     waves, tail = trace_waves.wave_schedule(N, int(SCENE.max_bounces), **KW)
-    assert list(trace_waves.wave_plans) == [
+    assert [{k: s["attrs"][k] for k in ("width", "waves", "tail")}
+            for s in profiling.records()["spans"]
+            if s["name"] == "loop.waves"] == [
         {"width": N, "waves": waves, "tail": tail}]
     st = res.status.numpy()
     assert set(np.unique(st)) <= {1, 2}
