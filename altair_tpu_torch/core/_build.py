@@ -6,7 +6,8 @@ shared library in seconds (no PyTorch headers).  The library lands in
 ``build/`` at the repository root, named by a hash of the source, the
 shared headers and the flags, so a changed source or header rebuilds and
 an unchanged one loads at once.  Nothing here runs at import time: the
-first launch builds; ``build`` starts one nvcc per kernel at once.
+first launch builds every kernel; ``build`` starts one nvcc per kernel at
+once.
 """
 
 from __future__ import annotations
@@ -83,6 +84,8 @@ def build(*names: str) -> None:
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``."""
-    build(name)
+    """Build (if needed) and load ``csrc/<name>.cu``.  The first build
+    takes every ``csrc/*.cu`` not built yet, one nvcc each at once, so a
+    path that launches two kernels waits for one build."""
+    build(*sorted(p.stem for p in CSRC.glob("*.cu")))
     return ctypes.CDLL(str(library_path(name)))

@@ -329,7 +329,8 @@ def trace_rays(
 
 
 # deferred-rim continuations at least this wide wave-compact their tail
-# (``trace_waves_from_state``) when there is no closed-form finish
+# (``trace_waves_from_state``) when there is no closed-form finish and the
+# kernels do not take the scene
 _WAVES_CONTINUATION_MIN = 65536
 # the wave schedule of that continuation, as in the JAX package
 # (RIM_CONT_FIRST_WAVE = None: the first wave is RIM_CONT_WAVE_ITERS long)
@@ -337,7 +338,8 @@ RIM_CONT_WAVE_ITERS = 96
 RIM_CONT_SHRINK = 4
 RIM_CONT_FIRST_WAVE: int | None = None
 # hybrid-continuation tails at least this wide recurse into the hybrid
-# (module constant so tests can lower it)
+# where the kernels do not take the scene (module constant so tests can
+# lower it)
 HYBRID_RECURSE_MIN = 32768
 
 
@@ -429,12 +431,14 @@ def _rim_continuation_hybrid(gen, scene, carry, cfg, radius, r_out, cos_tm,
                              INF, device, depth: int = 0):
     """Finish the deferred-rim continuation buffer: a 16-iteration exact-rim
     prefix, a closed-form finish of the interior survivors, a re-clip of
-    their sampled escapes, and an 8x-smaller in-loop tail (recursing into
-    this hybrid while the tail is large).  Same schedule as the JAX
-    package.
+    their sampled escapes, and an 8x-smaller tail.  Where the kernels take
+    the scene the tail is one launch of the finish kernel; elsewhere it is
+    the in-loop trace, recursing into this hybrid while it is large (the
+    JAX package's schedule).
 
     Returns ``(pos, dir, prev, status, bounces, n_overflow)``."""
     from .geometry import cone_crossing_t, cone_face_normal
+    from .trace_cuda import finish_from_state, kernel_applicable
     from .trace_direct import trace_direct_from_state
 
     dtype = cfg.dtype
@@ -489,7 +493,12 @@ def _rim_continuation_hybrid(gen, scene, carry, cfg, radius, r_out, cos_tm,
     carry2 = (g_pos, g_dir, g_prev,
               _i32(torch.where(valid2, RUNNING, ABSORBED)),
               g_bounces, valid2)
-    if depth < 2 and m2 >= HYBRID_RECURSE_MIN:
+    if kernel_applicable(scene, cfg):
+        fin2 = finish_from_state(k_tail, scene, carry2, exact_rim=True)
+        pos2, dir2, prev2, status2, bounces2 = (
+            fin2.last_point, fin2.direction, fin2.seg_start, fin2.status,
+            fin2.n_bounces)
+    elif depth < 2 and m2 >= HYBRID_RECURSE_MIN:
         (pos2, dir2, prev2, status2, bounces2,
          ovf3) = _rim_continuation_hybrid(k_tail, scene, carry2, cfg,
                                           radius, r_out, cos_tm, INF,
@@ -533,8 +542,10 @@ def trace_rays_rim_deferred(
     3. compact the clipped lanes into an ``n_rays >> capacity_shift``
        buffer, apply the first rim bounce, and finish them with the
        exact-rim step: the hybrid continuation for Lambertian scenes, else
-       the waves tracer at ``m >= _WAVES_CONTINUATION_MIN`` lanes and the
-       eager loop below that;
+       one launch of the finish kernel where the kernels take the scene
+       (``trace_cuda.kernel_applicable``), else the waves tracer at
+       ``m >= _WAVES_CONTINUATION_MIN`` lanes and the eager loop below
+       that;
     4. scatter the continuation back over the clipped lanes.
 
     Returns ``(TraceResult, RimOverflow)``; ``RimOverflow.total`` counts
@@ -543,8 +554,10 @@ def trace_rays_rim_deferred(
 
     Spans: ``trace.main`` (step 1), ``trace.rim`` (steps 2-4, with the
     buffer's width ``m``) and inside it ``trace.rim.cont`` (the
-    continuation, with its ``kind``: ``hybrid``, ``waves`` or ``eager``).
+    continuation, with its ``kind``: ``hybrid``, ``kernel``, ``waves`` or
+    ``eager``).
     """
+    from .trace_cuda import kernel_applicable
     from .trace_direct import direct_applicable
 
     if cfg.keep_history:
@@ -561,6 +574,8 @@ def trace_rays_rim_deferred(
     m = min(n_rays, max(256, n_rays >> capacity_shift))
     if cfg.engine in ("auto", "direct") and direct_applicable(scene, cfg):
         kind = "hybrid"
+    elif kernel_applicable(scene, cfg):
+        kind = "kernel"
     elif m >= _WAVES_CONTINUATION_MIN:
         kind = "waves"
     else:
@@ -574,7 +589,7 @@ def _rim_post_pass(res, main_overflow, scene, n_rays, m, kind, cfg, k_first,
                    k_cont, device):
     """Steps 2-4 of ``trace_rays_rim_deferred`` over the main trace
     ``res``, with an ``m``-lane buffer and the continuation ``kind``
-    (``hybrid``, ``waves`` or ``eager``)."""
+    (``hybrid``, ``kernel``, ``waves`` or ``eager``)."""
     from .geometry import cone_crossing_t, cone_face_normal
 
     dtype = cfg.dtype
@@ -623,11 +638,17 @@ def _rim_continuation(kind, k_cont, scene, carry, cfg, m, radius, r_out,
                       cos_tm, INF, device):
     """Finish the rim buffer's lanes from ``carry``: ``(pos, direction,
     prev, status, bounces, n_overflow)``, ``n_overflow`` None where the
-    continuation loses no ray (the eager loop)."""
+    continuation loses no ray (the finish kernel, the eager loop)."""
     max_iters = int(scene.max_bounces)
     if kind == "hybrid":
         return _rim_continuation_hybrid(k_cont, scene, carry, cfg, radius,
                                         r_out, cos_tm, INF, device)
+    if kind == "kernel":
+        from .trace_cuda import finish_from_state
+
+        fin = finish_from_state(k_cont, scene, carry, exact_rim=True)
+        return (fin.last_point, fin.direction, fin.seg_start, fin.status,
+                fin.n_bounces, None)
     if kind == "waves":
         # a wide continuation wave-compacts its tail: after the gap
         # resolves only re-entrant lanes survive, and the eager loop would

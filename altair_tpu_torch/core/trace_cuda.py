@@ -3,16 +3,19 @@ engine built on them — the counterpart of ``altair_tpu/core/trace_pallas.py``
 (``_bounce_kernel``, ``trace_rays_pallas``, ``_refill_kernel``,
 ``trace_rays_refill``, ``trace_rays_fast``).
 
-``bounce`` and ``refill`` are the wrappers.  On a CUDA tensor each launches
-its hand-written kernel (``csrc/bounce.cu``, ``csrc/refill.cu``, built at
-first use by ``_build``) or raises; on a CPU tensor it runs its plain
-version (``bounce_plain``, ``refill_plain``), the same computation in
-plain tensor ops.  There is no fallback from one to the other.
+``bounce``, ``refill`` and ``finish`` are the wrappers.  On a CUDA tensor
+each launches its hand-written kernel (``csrc/bounce.cu``,
+``csrc/refill.cu``, ``csrc/finish.cu``, built at first use by ``_build``)
+or raises; on a CPU tensor it runs its plain version (``bounce_plain``,
+``refill_plain``, ``finish_plain``), the same computation in plain tensor
+ops.  There is no fallback from one to the other.
 
 Dispatch, as in the JAX package: batches of n >= ``REFILL_MIN`` run the
 refill kernel with ``_REFILL_BUDGET`` rays per lane and the tail handoff
-at ``_REFILL_HANDOFF``, whose stragglers finish in the waves tracer; smaller
-batches run the bounce kernel.
+at ``_REFILL_HANDOFF``, whose stragglers finish in the finish kernel;
+smaller batches run the bounce kernel.  The finish kernel also runs the
+deferred rim post-pass's continuation (``finish_from_state``), which the
+JAX package runs as an XLA loop.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ KERNELS = {
                "altair_tpu/core/trace_pallas.py:247"),
     "refill": ("altair_tpu_torch/csrc/refill.cu",
                "altair_tpu/core/trace_pallas.py:399"),
+    "finish": ("altair_tpu_torch/csrc/finish.cu", None),
 }
 
 # lanes of one refill unit: a warp's pool and the handoff unit
@@ -79,6 +83,16 @@ def _model_supported(scene: SphereScene) -> bool:
             and SurfaceModel(scene.surface_model) in N_DRAWS)
 
 
+def rim_operand(scene: SphereScene, device) -> torch.Tensor:
+    """The finish kernel's rim operand, float32[2] on ``device``:
+    ``[cos(theta_max), outer_radius]``, cos(theta_max) as
+    ``kernel_operands`` computes it."""
+    f = np.float32
+    cos_tm = np.cos(np.deg2rad(f(scene.theta_max_deg)))
+    return torch.from_numpy(np.array([cos_tm, f(scene.outer_radius)],
+                                     np.float32)).to(device)
+
+
 def kernel_operands(scene: SphereScene, source: Source, device):
     """``(scene_vec, src_vec)``, float32[8] each, on ``device`` —
     ``trace_pallas.py::_kernel_operands`` computed the same way in float32:
@@ -90,6 +104,18 @@ def kernel_operands(scene: SphereScene, source: Source, device):
       COS_N_LOBE (cos_n, max angle in radians);
     src_vec = [x, y, z, dx, dy, dz, 0, 0] with the direction normalised.
     """
+    f = np.float32
+    dx, dy, dz = f(source.dir_x), f(source.dir_y), f(source.dir_z)
+    dnorm = np.sqrt(dx * dx + dy * dy + dz * dz)
+    src_vec = np.array([f(source.x), f(source.y), f(source.z),
+                        dx / dnorm, dy / dnorm, dz / dnorm, 0.0, 0.0],
+                       np.float32)
+    return (torch.from_numpy(_scene_array(scene)).to(device),
+            torch.from_numpy(src_vec).to(device))
+
+
+def _scene_array(scene: SphereScene) -> np.ndarray:
+    """``kernel_operands``' scene_vec as a numpy float32[8]."""
     f = np.float32
     theta_max = np.deg2rad(f(scene.theta_max_deg))
     model = SurfaceModel(scene.surface_model)
@@ -104,17 +130,10 @@ def kernel_operands(scene: SphereScene, source: Source, device):
         m0 = f(scene.cos_n)
         m1 = np.deg2rad(f(scene.max_angle_deg))
     r = f(scene.inner_radius)
-    scene_vec = np.array([
+    return np.array([
         r, r * np.cos(theta_max), f(scene.reflectance), f(scene.world_half),
         f(scene.exit_port_z), f(float(scene.max_bounces)), m0, m1,
     ], np.float32)
-    dx, dy, dz = f(source.dir_x), f(source.dir_y), f(source.dir_z)
-    dnorm = np.sqrt(dx * dx + dy * dy + dz * dz)
-    src_vec = np.array([f(source.x), f(source.y), f(source.z),
-                        dx / dnorm, dy / dnorm, dz / dnorm, 0.0, 0.0],
-                       np.float32)
-    return (torch.from_numpy(scene_vec).to(device),
-            torch.from_numpy(src_vec).to(device))
 
 
 def seed_pair(gen: torch.Generator) -> tuple[int, int]:
@@ -437,6 +456,229 @@ def bounce(seed, scene_vec, src_vec, n: int, model, max_bounces: int,
         return bounce_plain(seed, scene_vec, src_vec, n, model, max_bounces,
                             rng)
     raise ValueError(f"no bounce kernel for device {scene_vec.device}")
+
+
+# ---------------------------------------------------------------------------
+# The finish kernel: a mid-flight ray state run to each ray's death
+# ---------------------------------------------------------------------------
+
+def _check_finish_args(seed, scene_vec, rim_vec, state, model, max_iters):
+    if SurfaceModel(model) not in N_DRAWS:
+        raise NotImplementedError(f"no finish kernel for law {model!r}")
+    if max_iters < 0:
+        raise ValueError("max_iters must be non-negative")
+    if len(seed) != 2:
+        raise ValueError("seed must be a pair of 32-bit words")
+    for name, v, k in (("scene_vec", scene_vec, 8), ("rim_vec", rim_vec, 2)):
+        if v.dtype != torch.float32 or v.shape != (k,):
+            raise ValueError(f"{name} must be float32[{k}], got "
+                             f"{v.dtype}{list(v.shape)}")
+        if v.device != scene_vec.device:
+            raise ValueError(f"{name} must be on the device of scene_vec")
+    pos, direction, prev, status, bounces, in_gap = state
+    n = status.shape[0]
+    planes = [*pos, *direction, *prev]
+    for name, v, dt in ([("position, direction or prev", p, torch.float32)
+                         for p in planes]
+                        + [("status", status, torch.int32),
+                           ("bounces", bounces, torch.int32),
+                           ("in_gap", in_gap, torch.bool)]):
+        if v.dtype != dt or v.shape != (n,) or v.device != scene_vec.device:
+            raise ValueError(f"{name} must be {dt}[{n}] on "
+                             f"{scene_vec.device}, got {v.dtype}"
+                             f"{list(v.shape)} on {v.device}")
+
+
+def finish_plain(seed, scene_vec, rim_vec, state, model, max_iters: int,
+                 exact_rim: bool) -> TraceResult:
+    """The finish kernel's computation in plain tensor ops, on the device
+    of ``scene_vec``: each step runs the lanes still RUNNING, with the
+    step of ``csrc/finish.cu`` in the same float operations, and drops the
+    lanes it finished (a lane's draws are keyed by (lane, step), so which
+    lanes share a step changes nothing).  A lane not RUNNING at entry
+    comes back as it went in."""
+    from .geometry import cone_crossing_t, cone_face_normal, sphere_crossing_t
+
+    _check_finish_args(seed, scene_vec, rim_vec, state, model, max_iters)
+    model = SurfaceModel(model)
+    radius, cos_cap, reflectance, world_half = (scene_vec[0], scene_vec[1],
+                                                scene_vec[2], scene_vec[3])
+    m0, m1 = scene_vec[6], scene_vec[7]
+    inv_r = 1.0 / radius
+    cos_tm, r_out = rim_vec[0], rim_vec[1]
+    nd = N_DRAWS[model]
+    seed0, seed1 = int(seed[0]) & _M32, int(seed[1]) & _M32
+    inf = 1e30
+
+    pos, direction, prev, status, bounces, in_gap = state
+    # the output planes start as the entry state; a lane's fields are
+    # written when it finishes
+    out = [t.clone() for t in (status, *pos, *prev, *direction, bounces)]
+    w = torch.nonzero(status == RUNNING).flatten()
+    px, py, pz, dx, dy, dz, sx, sy, sz = (t[w] for t in (*pos, *direction,
+                                                         *prev))
+    st, nb = status[w], bounces[w]
+    g = in_gap[w] & exact_rim
+
+    it = 0
+    while it < max_iters and w.numel():
+        b = px * dx + py * dy + pz * dz
+        c = px * px + py * py + pz * pz - radius * radius
+        disc = torch.clamp(b * b - c, min=0.0)
+        t = torch.clamp(-b + torch.sqrt(disc), min=0.0)
+        qx = px + dx * t
+        qy = py + dy * t
+        qz = pz + dz * t
+        rn = radius * torch.rsqrt(qx * qx + qy * qy + qz * qz)
+        qx, qy, qz = qx * rn, qy * rn, qz * rn
+        escaped = qz < cos_cap
+        p, d = Vec3(px, py, pz), Vec3(dx, dy, dz)
+        if exact_rim:
+            interior = ~g
+            o = Vec3.where(g, p, Vec3(qx, qy, qz))
+            s_rim = cone_crossing_t(o, d, cos_tm, radius, r_out, inf)
+            s_in = sphere_crossing_t(p, d, radius, inf)
+            s_out = sphere_crossing_t(p, d, r_out, inf)
+            gap_cone = g & (s_rim < s_in) & (s_rim < s_out)
+            gap_enter = g & ~gap_cone & (s_in < s_out)
+            gap_exit = g & ~gap_cone & ~gap_enter & (s_out < inf)
+            stuck = g & ~gap_cone & ~gap_enter & ~gap_exit
+            rim = (interior & escaped & (s_rim < inf)) | gap_cone
+            wall = interior & ~escaped
+            exits = (interior & escaped & ~rim) | gap_exit
+            rim_pt = o + d.scale(s_rim)
+            e = p + d.scale(s_in)
+            enter = e.scale(radius * torch.rsqrt(e.norm2()))
+        else:
+            rim = gap_enter = stuck = torch.zeros_like(escaped)
+            wall, exits = ~escaped, escaped
+            rim_pt = enter = p
+        bounce = rim | wall
+        u = _philox_draws(w, it, nd, seed0, seed1)
+        survive = u[0] < reflectance
+        normal = Vec3(-qx * inv_r, -qy * inv_r, -qz * inv_r)
+        if exact_rim:
+            normal = Vec3.where(rim, cone_face_normal(rim_pt), normal)
+        ndx, ndy, ndz = _scatter_dir(model, m0, m1, u, *normal, dx, dy, dz)
+        bx, by, bz = _box_flight(exits, px, py, pz, dx, dy, dz, world_half)
+
+        st = _i32(torch.where(exits, EXITED, torch.where(
+            bounce & ~survive, ABSORBED,
+            torch.where(stuck, SUSPENDED, RUNNING))))
+        moved = ~stuck
+        sx, sy, sz = (torch.where(moved, a, s_) for a, s_ in
+                      ((px, sx), (py, sy), (pz, sz)))
+        px, py, pz = (torch.where(exits, bc, torch.where(
+            rim, rc, torch.where(gap_enter, ec, torch.where(moved, qc, pc))))
+            for bc, rc, ec, qc, pc in ((bx, rim_pt.x, enter.x, qx, px),
+                                       (by, rim_pt.y, enter.y, qy, py),
+                                       (bz, rim_pt.z, enter.z, qz, pz)))
+        turn = bounce & survive
+        dx, dy, dz = (torch.where(turn, a, d_) for a, d_ in
+                      ((ndx, dx), (ndy, dy), (ndz, dz)))
+        nb = nb + _i32(bounce)
+        g = rim & survive
+        it += 1
+
+        done = st != RUNNING
+        if it == max_iters or host_bool(done.any()):
+            if it == max_iters:
+                done = torch.ones_like(done)
+                st = torch.where(st == RUNNING, SUSPENDED, st)
+            wd = w[done]
+            for plane, v in zip(out, (st, px, py, pz, sx, sy, sz, dx, dy,
+                                      dz, nb)):
+                plane[wd] = v[done]
+            keep = ~done
+            w, px, py, pz, dx, dy, dz, sx, sy, sz, st, nb, g = (
+                v[keep] for v in (w, px, py, pz, dx, dy, dz, sx, sy, sz, st,
+                                  nb, g))
+    if w.numel():       # max_iters == 0: every running lane is suspended
+        out[0][w] = SUSPENDED
+    (st, lx, ly, lz, sx, sy, sz, dx, dy, dz, nb) = out
+    return TraceResult(st, Vec3(lx, ly, lz), Vec3(sx, sy, sz),
+                       Vec3(dx, dy, dz), nb)
+
+
+@functools.cache
+def _finish_fn():
+    fn = _build.load("finish").altair_finish
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
+                    ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_longlong] + [ctypes.c_void_p] * 24)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _finish_cuda(seed, scene_vec, rim_vec, state, model, max_iters,
+                 exact_rim):
+    dev = scene_vec.device
+    pos, direction, prev, status, bounces, in_gap = state
+    n = status.shape[0]
+    out = ([torch.empty((n,), dtype=torch.int32, device=dev)]
+           + [torch.empty((n,), dtype=torch.float32, device=dev)
+              for _ in range(9)]
+           + [torch.empty((n,), dtype=torch.int32, device=dev)])
+    if n:
+        # the compactions hand over strided column views: the kernel reads
+        # dense planes
+        planes = [t.contiguous() for t in (*pos, *direction, *prev, status,
+                                           bounces, in_gap)]
+        fn = _finish_fn()
+        with (span("kernel.finish", n=n, exact_rim=bool(exact_rim)),
+              torch.cuda.device(dev)):
+            err = fn(scene_vec.data_ptr(), rim_vec.data_ptr(),
+                     int(seed[0]) & _M32, int(seed[1]) & _M32,
+                     int(max_iters), int(model), int(bool(exact_rim)), n,
+                     *[t.data_ptr() for t in planes],
+                     *[o.data_ptr() for o in out],
+                     torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"finish kernel launch failed: CUDA error {err}")
+        count("kernel.finish.launches")
+        count("kernel.finish.rays", n)
+    (status, lx, ly, lz, sx, sy, sz, dx, dy, dz, bounces) = out
+    return TraceResult(status, Vec3(lx, ly, lz), Vec3(sx, sy, sz),
+                       Vec3(dx, dy, dz), bounces)
+
+
+def finish(seed, scene_vec, rim_vec, state, model, max_iters: int,
+           exact_rim: bool) -> TraceResult:
+    """Run the mid-flight ray state ``state`` (the bounce-step carry
+    ``(pos, direction, prev, status, bounces, in_gap)`` of
+    ``trace.make_bounce_step``: float32, int32 and bool planes of one
+    width) to each ray's death under one static scatter law, at most
+    ``max_iters`` steps from the entry state, then SUSPENDED.
+
+    ``exact_rim`` picks the step's physics: the exact-rim branch of
+    ``make_bounce_step`` (the rim cone, the gap between the shell radii)
+    or its simple branch.  Exits follow the eager step's convention: the
+    segment start is the last wall or rim point, the last point the box
+    point flown to from it.  ``seed``: two 32-bit words of the philox
+    stream, counter (lane, step from entry, draw group); ``scene_vec`` as
+    from ``kernel_operands``, ``rim_vec`` from ``rim_operand``, on the
+    device to run on.  A CUDA ``scene_vec`` launches the CUDA kernel; a
+    CPU one runs ``finish_plain``."""
+    _check_finish_args(seed, scene_vec, rim_vec, state, model, max_iters)
+    if scene_vec.device.type == "cuda":
+        return _finish_cuda(seed, scene_vec, rim_vec, state, model,
+                            max_iters, exact_rim)
+    if scene_vec.device.type == "cpu":
+        return finish_plain(seed, scene_vec, rim_vec, state, model,
+                            max_iters, exact_rim)
+    raise ValueError(f"no finish kernel for device {scene_vec.device}")
+
+
+def finish_from_state(gen: torch.Generator, scene: SphereScene, state, *,
+                      exact_rim: bool) -> TraceResult:
+    """``finish`` for a scene the kernels take: the operands from
+    ``scene`` on the state's device, the seed words drawn from the CPU key
+    ``gen``, at most ``scene.max_bounces`` steps."""
+    dev = state[3].device
+    scene_vec = torch.from_numpy(_scene_array(scene)).to(dev)
+    return finish(seed_pair(gen), scene_vec, rim_operand(scene, dev), state,
+                  SurfaceModel(scene.surface_model), int(scene.max_bounces),
+                  exact_rim)
 
 
 # ---------------------------------------------------------------------------
@@ -805,12 +1047,13 @@ def trace_rays_refill(
 
     ``handoff_frac > 0`` turns on the tail handoff: each unit leaves its
     loop once at most ``int(handoff_frac * REFILL_LANES * rays_per_lane)``
-    of its rays are left, and the stragglers finish in the waves tracer
+    of its rays are left, and the stragglers finish in the finish kernel
     (``_refill_handoff_continue``); their ``seg_start`` is the last wall
     point (the source for an exit at bounce 0), also on the escape line.
 
-    Returns ``(TraceResult, n_overflow)``: the rays the continuation lost.
-    The JAX function drops that count."""
+    Returns ``(TraceResult, n_overflow)``: the rays the handoff's
+    compaction lost (none: its buffer holds every straggler).  The JAX
+    function drops that count."""
     chunk = REFILL_LANES * rays_per_lane
     if n_rays % chunk:
         raise ValueError(f"n_rays must be a multiple of {chunk}")
@@ -828,34 +1071,34 @@ def trace_rays_refill(
     n_overflow = torch.zeros((), dtype=torch.int32, device=device)
     if live is not None and n_rays:
         res, n_overflow = _refill_handoff_continue(
-            split(gen, 1)[0], scene, cfg, res, live, src_vec, rays_per_lane,
+            split(gen, 1)[0], scene, res, live, src_vec, rays_per_lane,
             thresh, device)
     # slots that no ray reached (the iteration cap) are suspended
     return (res._replace(status=torch.where(res.status == RUNNING, SUSPENDED,
                                             res.status)), n_overflow)
 
 
-def _refill_handoff_continue(gen, scene, cfg, res, live: LiveState, src_vec,
+def _refill_handoff_continue(gen, scene, res, live: LiveState, src_vec,
                              budget, thresh, device):
-    """Finish the refill kernel's stragglers in the waves tracer
-    (``trace_pallas.py::_refill_handoff_continue``).
+    """Finish the refill kernel's stragglers in one launch of the finish
+    kernel, simple-mode physics (``trace_pallas.py::_refill_handoff_continue``
+    runs the waves tracer there).
 
     A slot still RUNNING is the lane's live ray (slot == its ``ray_idx``:
     it goes on from the live state) or one never started (a source ray).
     A unit leaves its loop with at most ``thresh`` rays left, so
     ``n_units * thresh`` lanes hold them all and the grouped compaction
-    drops none; its drop count is added to the overflow all the same.
+    drops none; its drop count is the overflow all the same.  The kernel
+    loses no ray.
 
-    As in the JAX package, a straggler's bounce budget restarts: the waves
-    tracer caps its iterations at ``scene.max_bounces``, whatever bounces
-    the ray made in the kernel, so a ray could reach about twice the cap.
-    At the 4096 cap that needs a ray of more than 4096 bounces (P < 1e-15),
-    the same slack as the deferred-rim continuation's.
+    As in the JAX package, a straggler's bounce budget restarts: the finish
+    caps its steps at ``scene.max_bounces``, whatever bounces the ray made
+    in the refill kernel, so a ray could reach about twice the cap.  At the
+    4096 cap that needs a ray of more than 4096 bounces (P < 1e-15), the
+    same slack as the deferred-rim continuation's.
 
     The span ``trace.straggler``, with the lane capacity ``cap``.  Returns
     ``(TraceResult, n_overflow)``."""
-    from .trace_waves import trace_waves_from_state
-
     n = res.status.shape[0]
     per_unit = budget * REFILL_LANES
     cap = (n // per_unit) * thresh
@@ -881,10 +1124,8 @@ def _refill_handoff_continue(gen, scene, cfg, res, live: LiveState, src_vec,
         status0 = _i32(torch.where(valid, RUNNING, ABSORBED))
         carry = (pos, dirv, pos, status0, bounces0,
                  torch.zeros((cap,), dtype=torch.bool, device=device))
-        cont, n_overflow = trace_waves_from_state(gen, scene, carry, cfg,
-                                                  device=device)
-        return (_put_result(res, torch.where(valid, idx, n), cont),
-                n_overflow + dropped)
+        cont = finish_from_state(gen, scene, carry, exact_rim=False)
+        return _put_result(res, torch.where(valid, idx, n), cont), dropped
 
 
 def _slice(res: TraceResult, n: int) -> TraceResult:
@@ -922,12 +1163,13 @@ def trace_rays_fast(
 ) -> tuple[TraceResult, RimOverflow]:
     """The simulate engine: the bounce kernel, or the refill kernel and its
     straggler finish at n >= ``REFILL_MIN``, composed with the deferred rim
-    post-pass for exact-rim scenes.  What the kernels cannot take
+    post-pass for exact-rim scenes (whose continuation runs the finish
+    kernel).  What the kernels cannot take
     (float64, a thick rim, a scatter callable, path history) runs the
     eager ``trace_rays``, as the JAX function falls back to its XLA kernel.
 
     Returns ``(TraceResult, RimOverflow)``; ``RimOverflow.total`` counts
-    rim-capacity overflow and the rays the refill handoff's continuation
+    rim-capacity overflow and the rays the refill handoff's compaction
     lost.  The JAX function drops both counts; the port returns them so a
     caller can check them."""
     if not kernel_applicable(scene, cfg):

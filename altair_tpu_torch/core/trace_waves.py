@@ -94,8 +94,9 @@ def trace_waves_from_state(
 ) -> tuple[TraceResult, torch.Tensor]:
     """The waves tracer from a mid-flight ray state ``(pos, direction,
     prev, status, bounces, in_gap)`` (the bounce-step carry).  Used by
-    ``trace_rays_waves``, by the deferred-rim continuation and by the
-    refill kernel's straggler finish.
+    ``trace_rays_waves`` and by the deferred-rim continuation of scenes
+    the kernels do not take (elsewhere ``trace_cuda.finish`` runs such a
+    state in one launch).
 
     ``first_wave_iters`` (None = ``wave_iters``) shortens wave 0 only, for
     an entry state that is mostly dead lanes.  The tail caps its bounce
@@ -228,8 +229,8 @@ def trace_rays_auto(
     ``gen`` is a CPU ``torch.Generator`` (the key); ``device`` says where
     the rays are traced.  Returns ``(TraceResult, RimOverflow)``: the JAX
     function drops the overflow counts, the port returns them (rim
-    capacity, the waves tracer's and the refill handoff's) so a caller can
-    check them.  Path history (``cfg.keep_history``) runs the eager
+    capacity, the waves tracer's and the refill handoff compaction's) so a
+    caller can check them.  Path history (``cfg.keep_history``) runs the eager
     ``trace_rays``, the only tracer with a history buffer; a custom scatter
     callable is no static law, so it runs the waves or eager tracers.
 

@@ -26,9 +26,10 @@ Counters the port keeps (names as ``records()`` gives them):
 
 * ``host_syncs``: device-to-host reads on the trace and score paths
   (``host_bool`` / ``host_int``), always;
-* ``kernel.bounce.launches``, ``kernel.refill.launches`` and
-  ``kernel.<name>.rays`` (the rays those launches took), always; each
-  launch's size is also the ``n`` of its ``kernel.<name>`` span;
+* ``kernel.bounce.launches``, ``kernel.refill.launches``,
+  ``kernel.finish.launches`` and ``kernel.<name>.rays`` (the rays those
+  launches took), always; each launch's size is also the ``n`` of its
+  ``kernel.<name>`` span (``kernel.finish`` also says ``exact_rim``);
 * ``lane_steps_issued`` and ``lane_steps_live``: per eager or waves loop,
   its width times the iterations run (host), and the lane-steps whose ray
   was running at the step's start (summed on the device, read when

@@ -1,0 +1,213 @@
+"""The finish kernel (``csrc/finish.cu``) on one CUDA GPU: its entry states
+as the main paths hand them over, its time against its plain version, and
+its bound.
+
+    python -m altair_tpu_torch.profile_finish [--reps R] [--out FILE]
+
+For each main path that runs it — the MIXED_BRDF trace-once map's rim
+continuation (100,000 rays, exact rim; the bounce kernel's path) and the
+4,194,304-ray trace's straggler finish and rim continuation (the refill
+kernel's path) — it records the ``finish`` calls of one simulate trace
+(``finish_calls``), then replays each: the kernel under CUDA events (mean
+of ``R`` launches after a warm one), ``finish_plain`` once on the host
+clock, the lanes on which the two agree (status and bounces) and the
+largest position or direction difference on them, and the bound: the
+longest lane's steps times one step's latency (``finish_step_latency_ms``:
+one thread, the port closed, a wall that absorbs nothing, 4096 steps
+against 1).  Prints one JSON line per call; ``--out`` also writes them to
+a file.  Each line carries the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import sys
+import time
+
+import torch
+
+MAX_BOUNCES = 4096
+# the paths timed: (name, law, rays)
+PATHS = (("map100k_rim", "MIXED_BRDF", 100_000),
+         ("trace4M", "MIXED_BRDF", 4_194_304))
+
+
+def finish_calls(device, scene, n: int, seed: int = 0) -> list[dict]:
+    """The arguments of every ``trace_cuda.finish`` call of one
+    ``trace_rays_auto(engine="simulate")`` trace of ``n`` rays of
+    ``scene`` from ``SOURCE_OVERNIGHT``, in call order, as keyword
+    dictionaries of ``finish`` (the state planes made dense)."""
+    from . import SOURCE_OVERNIGHT, TraceConfig, trace_rays_auto
+    from .core import trace_cuda
+
+    calls = []
+    real = trace_cuda.finish
+
+    def spy(seed, scene_vec, rim_vec, state, model, max_iters, exact_rim):
+        calls.append(dict(seed=seed, scene_vec=scene_vec, rim_vec=rim_vec,
+                          state=(*(type(v)(*(c.contiguous() for c in v))
+                                   for v in state[:3]),
+                                 *(t.contiguous() for t in state[3:])),
+                          model=model, max_iters=max_iters,
+                          exact_rim=exact_rim))
+        return real(seed, scene_vec, rim_vec, state, model, max_iters,
+                    exact_rim)
+
+    trace_cuda.finish = spy
+    try:
+        trace_rays_auto(torch.Generator().manual_seed(seed), scene,
+                        SOURCE_OVERNIGHT, n, TraceConfig(engine="simulate"),
+                        device=device)
+    finally:
+        trace_cuda.finish = real
+    return calls
+
+
+def mixed_entry_state(device, model, n: int = 20_000, n_interior: int = 2048,
+                      max_iters: int = 256, seed: int = 0) -> dict:
+    """``finish`` arguments whose state holds every kind of lane: the rim
+    continuation's buffer of an ``n``-ray simulate trace (lanes in the gap
+    after their first rim bounce, dead lanes: killed there or padding),
+    then ``n_interior`` source rays (interior, RUNNING, 3 bounces so far);
+    ``max_iters`` small enough that some lanes reach the cap."""
+    from . import SCENE_OPTIMIZE, SOURCE_OVERNIGHT, SurfaceModel
+    from .core.trace import _source_rays
+
+    scene = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES, surface_model=model)
+    (rim,) = [c for c in finish_calls(device, scene, n, seed)
+              if c["exact_rim"]]
+    pos, d = _source_rays(SOURCE_OVERNIGHT, n_interior, torch.float32, device)
+    extra = (pos, d, pos,
+             torch.zeros(n_interior, dtype=torch.int32, device=device),
+             torch.full((n_interior,), 3, dtype=torch.int32, device=device),
+             torch.zeros(n_interior, dtype=torch.bool, device=device))
+    state = tuple(type(a)(*(torch.cat([x, y]) for x, y in zip(a, b)))
+                  if isinstance(a, tuple) else torch.cat([a, b])
+                  for a, b in zip(rim["state"], extra))
+    return {**rim, "state": state, "max_iters": max_iters,
+            "model": SurfaceModel(model)}
+
+
+def lane_kinds(state) -> dict:
+    """How many lanes of a ``finish`` state are in the gap, interior
+    (both RUNNING), and dead."""
+    run = state[3] == 0
+    return {"gap": int((run & state[5]).sum()),
+            "interior": int((run & ~state[5]).sum()),
+            "dead": int((~run).sum())}
+
+
+def compare(a, b):
+    """The share of lanes whose status and bounce count agree, and the
+    largest position or direction difference on them: 0 where both are
+    NaN (dead padding lanes pass their state through), inf where one is."""
+    agree = (a.status == b.status) & (a.n_bounces == b.n_bounces)
+    err = 0.0
+    for f in ("last_point", "seg_start", "direction"):
+        for x, y in zip(getattr(a, f), getattr(b, f)):
+            d = torch.where(x.isnan() & y.isnan(), 0.0, (x - y).abs())
+            d = torch.nan_to_num(d, nan=math.inf)
+            if bool(agree.any()):
+                err = max(err, float(d[agree].max()))
+    return float(agree.float().mean()), err
+
+
+def finish_step_latency_ms(device, reps: int = 5) -> float:
+    """One thread of the finish kernel (exact rim, MIXED_BRDF, interior)
+    with the port closed (cos_cap below the sphere) and a wall that
+    absorbs nothing: its time for 4096 steps less its time for 1, over
+    4095 (CUDA events)."""
+    from . import SCENE_OPTIMIZE, SOURCE_OVERNIGHT, SurfaceModel
+    from .core import trace_cuda
+    from .core.trace import _source_rays
+
+    scene = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES,
+                                 surface_model=SurfaceModel.MIXED_BRDF)
+    sv, _ = trace_cuda.kernel_operands(scene, SOURCE_OVERNIGHT, device)
+    sv[1] = -2.0 * sv[0]
+    sv[2] = 1.0
+    rim = trace_cuda.rim_operand(scene, device)
+    pos, d = _source_rays(SOURCE_OVERNIGHT, 1, torch.float32, device)
+    zi = torch.zeros(1, dtype=torch.int32, device=device)
+    state = (pos, d, pos, zi, zi, torch.zeros(1, dtype=torch.bool,
+                                              device=device))
+    times = {}
+    for it in (1, MAX_BOUNCES):
+        times[it] = events_ms(lambda: trace_cuda.finish(
+            (1, 2), sv, rim, state, 2, it, True), reps)
+    return (times[MAX_BOUNCES] - times[1]) / (MAX_BOUNCES - 1)
+
+
+def events_ms(fn, reps: int = 5) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls after a warm one."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def time_call(call: dict, latency_ms: float, reps: int = 20) -> dict:
+    """One recorded ``finish`` call: the kernel's time, the plain
+    version's, their agreement, and the bound (its longest lane's steps,
+    a bounce or an exit each, times ``latency_ms``)."""
+    from .core import trace_cuda
+
+    state = call["state"]
+    kernel_ms = events_ms(lambda: trace_cuda.finish(**call), reps)
+    k = trace_cuda.finish(**call)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = trace_cuda.finish_plain(**call)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    agree, err = compare(k, p)
+    steps = (k.n_bounces - state[4]).long() + (k.status == 1).long()
+    longest = int(steps.max()) if steps.numel() else 0
+    return {"n": int(state[3].shape[0]), "exact_rim": bool(call["exact_rim"]),
+            "lanes": lane_kinds(state), "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "agree": agree, "max_abs_err_cm": err,
+            "lane_steps": int(steps.sum()), "longest_lane_steps": longest,
+            "step_latency_ms": latency_ms, "bound_ms": longest * latency_ms,
+            "bound_by": "serial chain"}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", help="also write the JSON lines to this file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_finish: needs a CUDA device", file=sys.stderr)
+        return 2
+    from . import SCENE_OPTIMIZE, SurfaceModel
+    from .profile_refill import card
+
+    device = torch.device("cuda", 0)
+    crd = card()
+    latency = finish_step_latency_ms(device)
+    lines = []
+    for name, law, n in PATHS:
+        scene = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES,
+                                     surface_model=SurfaceModel[law])
+        for call in finish_calls(device, scene, n, args.seed):
+            lines.append({"path": name, "law": law, "rays": n,
+                          **time_call(call, latency, args.reps),
+                          "card": crd["name"],
+                          "power_limit_w": crd["power_limit_w"]})
+            print(json.dumps(lines[-1]), flush=True)
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write("".join(json.dumps(x) + "\n" for x in lines))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

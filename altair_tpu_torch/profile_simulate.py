@@ -6,27 +6,23 @@ CUDA GPU.
 Traces N rays (default 4,194,304) of the production scene
 (``SCENE_OPTIMIZE``: port 170 deg, exact rim; ``SOURCE_OVERNIGHT``; a
 4096-bounce cap as ``bench.py``) through
-``trace_rays_auto(engine="simulate")`` in four variants:
+``trace_rays_auto(engine="simulate")`` in three variants:
 
 * ``A_dispatch``: the refill kernel with the handoff at
-  ``trace_cuda._REFILL_HANDOFF``, its straggler finish, and the waves rim
-  continuation;
+  ``trace_cuda._REFILL_HANDOFF``, its straggler finish and the rim
+  continuation (one finish-kernel launch each);
 * ``B_no_handoff``: A with the handoff off;
-* ``C_bounce``: the bounce kernel alone (``REFILL_MIN`` raised past N);
-* ``D_eager_rim``: A with the eager loop in place of the waves rim
-  continuation (``_WAVES_CONTINUATION_MIN`` raised past N).
+* ``C_bounce``: the bounce kernel alone (``REFILL_MIN`` raised past N).
 
-One warm run of each, then R rounds in turns (A B C D, D C B A, ...).  A
+One warm run of each, then R rounds in turns (A B C, C B A, ...).  A
 run records its wall time (host clock, up to a device sync and the
 exit-count readback) under the program's tracer (``io.profiling``), and
 from its records: ``stages_s``, the host seconds of the spans
 ``trace.main``, ``trace.straggler`` (inside the main trace) and
 ``trace.rim`` (clip test, compaction, first rim bounce, continuation,
-scatter-back); ``waves``, the plans of its ``loop.waves`` spans in call
-order; ``lane_use_pct``, 100 x live / issued lane-steps of its eager and
-waves loops; ``host_syncs``; and the kernels' launches.  A span does not
-sync the device: work one stage launches can finish inside the next
-stage's first device read (the rim continuation's alive checks).  Then
+scatter-back); ``host_syncs``; and the kernels' launches.  A span does
+not sync the device: work one stage launches can finish inside the next
+stage's first device read.  Then
 one ``torch.profiler`` run of each variant, tracer off, gives the
 device's busy time (the union of its activity intervals) and its activity
 count.  Prints one JSON line per variant; ``--out`` also writes them to a
@@ -44,7 +40,7 @@ import time
 
 import torch
 
-VARIANTS = ("A_dispatch", "B_no_handoff", "C_bounce", "D_eager_rim")
+VARIANTS = ("A_dispatch", "B_no_handoff", "C_bounce")
 MAX_BOUNCES = 4096
 STAGES = ("trace.main", "trace.straggler", "trace.rim")
 
@@ -52,21 +48,17 @@ STAGES = ("trace.main", "trace.straggler", "trace.rim")
 @contextlib.contextmanager
 def variant(name: str, n: int):
     """Set the dispatch constants of ``name`` and restore them after."""
-    from .core import trace, trace_cuda
+    from .core import trace_cuda
 
-    saved = (trace_cuda.REFILL_MIN, trace_cuda._REFILL_HANDOFF,
-             trace._WAVES_CONTINUATION_MIN)
+    saved = (trace_cuda.REFILL_MIN, trace_cuda._REFILL_HANDOFF)
     if name == "B_no_handoff":
         trace_cuda._REFILL_HANDOFF = 0.0
     elif name == "C_bounce":
         trace_cuda.REFILL_MIN = n + 1
-    elif name == "D_eager_rim":
-        trace._WAVES_CONTINUATION_MIN = n + 1
     try:
         yield
     finally:
-        (trace_cuda.REFILL_MIN, trace_cuda._REFILL_HANDOFF,
-         trace._WAVES_CONTINUATION_MIN) = saved
+        trace_cuda.REFILL_MIN, trace_cuda._REFILL_HANDOFF = saved
 
 
 def trace_once(device, n: int, seed: int):
@@ -100,13 +92,9 @@ def staged_run(device, n: int, seed: int) -> dict:
             stages[s["name"]] += (s["end_ns"] - s["start_ns"]) * 1e-9
     tot = rec["totals"]
     return {"wall_s": wall, "exit_fraction": frac, "stages_s": stages,
-            "waves": [{k: s["attrs"][k] for k in ("width", "waves", "tail")}
-                      for s in rec["spans"] if s["name"] == "loop.waves"],
-            "lane_use_pct": 100.0 * tot.get("lane_steps_live", 0)
-            / max(tot.get("lane_steps_issued", 0), 1),
             "host_syncs": tot.get("host_syncs", 0),
             "launches": {k: tot.get(f"kernel.{k}.launches", 0)
-                         for k in ("bounce", "refill")}}
+                         for k in ("bounce", "refill", "finish")}}
 
 
 def profiled_run(device, n: int, seed: int) -> dict:

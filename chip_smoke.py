@@ -7,15 +7,19 @@ the multi-device layer).
 
     python3 chip_smoke.py
 
-Builds the CUDA bounce and refill kernels from altair_tpu_torch/csrc (one
-nvcc each, in parallel), holds each against its plain PyTorch version,
+Builds the CUDA bounce, refill and finish kernels from altair_tpu_torch/csrc
+(one nvcc each, in parallel), holds each against its plain PyTorch version,
 drives the headline job (production scene, SOURCE_OVERNIGHT, 100,000 rays,
 the full 180x90 detector grid) through ``trace_rays_auto`` +
 ``fluxmap_trace_once_compact`` with both engines and through
 ``sweep_detector_trace_once``, traces 4,194,304 rays through both engines
 (the simulate engine through the refill kernel, its tail handoff and the
-waves tracer), and times the refill kernel, its straggler finish and the
-simulate engine at 4M rays with and without the handoff.  The refill
+finish kernel), and times the refill kernel, its straggler finish and the
+simulate engine at 4M rays with and without the handoff.  The finish
+kernel is held against its plain version on states with lanes in the
+gap, interior, dead and at the cap, and timed at the main paths' shapes
+(the MIXED_BRDF map's rim continuation, the 4M trace's straggler finish
+and rim continuation) against its longest lane's serial chain.  The refill
 kernel (warp-owned lane pools) is held against its plain version at every
 size the main paths launch it with (2^20, 4,194,304 and the retrace
 chunk's), for the four laws with and without the handoff, and at 65,536
@@ -68,6 +72,10 @@ import time
 
 import torch
 
+# lanes where status and bounce count agree, and the largest position or
+# direction difference on them (NaN on both sides reads 0, on one inf)
+from altair_tpu_torch.profile_finish import compare
+
 N_HEADLINE = 100_000
 N_SCALE = 4_194_304
 MAX_BOUNCES = 4096            # as bench.py: P(alive > 2000 bounces) < 1e-15
@@ -102,7 +110,7 @@ def launches() -> dict:
 
     tot = profiling.records()["totals"]
     return {k: tot.get(f"kernel.{k}.launches", 0)
-            for k in ("bounce", "refill")}
+            for k in ("bounce", "refill", "finish")}
 
 
 def launch_sizes(kernel: str) -> list:
@@ -120,19 +128,6 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def compare(a, b):
-    """Lanes where status and bounce count agree, and the largest position
-    or direction difference on those lanes."""
-    agree = (a.status == b.status) & (a.n_bounces == b.n_bounces)
-    err = 0.0
-    for f in ("last_point", "seg_start", "direction"):
-        for c in "xyz":
-            d = (getattr(getattr(a, f), c) - getattr(getattr(b, f), c)).abs()
-            if bool(agree.any()):
-                err = max(err, float(d[agree].max()))
-    return float(agree.float().mean()), err
 
 
 def live_equal(a, b) -> bool:
@@ -184,6 +179,54 @@ def phase_kernel_vs_plain(device, n=65_536, max_bounces=256):
     return {"phase": "kernel_vs_plain_hash", "n": n,
             "max_bounces": max_bounces, "laws": rows,
             "tolerance": "agree>=0.999, |dx|<=1e-3 cm"}
+
+
+def phase_finish_vs_plain(device):
+    """The finish kernel against finish_plain, philox, all four laws, both
+    physics: a state with lanes in the gap, interior, dead and (at a
+    256-step cap) suspended (``profile_finish.mixed_entry_state``).
+    Status and bounce count must be equal on every lane."""
+    from altair_tpu_torch import SurfaceModel, profile_finish
+    from altair_tpu_torch.core import trace_cuda
+
+    rows = {}
+    for model in SurfaceModel:
+        call = profile_finish.mixed_entry_state(device, model)
+        for exact_rim in (True, False):
+            call["exact_rim"] = exact_rim
+            k = trace_cuda.finish(**call)
+            sync(device)
+            p = trace_cuda.finish_plain(**call)
+            agree, err = compare(k, p)
+            name = f"{model.name}/exact_rim={exact_rim}"
+            rows[name] = {"agree": agree, "max_abs_err_cm": err,
+                          "lanes": profile_finish.lane_kinds(call["state"]),
+                          "suspended": int((k.status == 3).sum())}
+            check(agree == 1.0, f"finish {name}: {agree} of lanes agree")
+            check(err <= 1e-3, f"finish {name}: positions differ by {err}")
+    return {"phase": "finish_vs_plain", "max_iters": 256, "laws": rows,
+            "tolerance": "agree==1, |dx|<=1e-3 cm"}
+
+
+def phase_finish_timing(device):
+    """The finish kernel at the main paths' shapes (``profile_finish``:
+    the MIXED_BRDF trace-once map's rim continuation at 100,000 rays, the
+    4,194,304-ray trace's straggler finish and rim continuation): kernel
+    and plain times, agreement, and the serial-chain bound."""
+    from altair_tpu_torch import SCENE_OPTIMIZE, SurfaceModel, profile_finish
+
+    latency = profile_finish.finish_step_latency_ms(device)
+    rows = []
+    for name, law, n in profile_finish.PATHS:
+        scene = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES,
+                                     surface_model=SurfaceModel[law])
+        for call in profile_finish.finish_calls(device, scene, n):
+            row = {"path": name, "law": law, "rays": n,
+                   **profile_finish.time_call(call, latency)}
+            check(row["agree"] == 1.0 and row["max_abs_err_cm"] <= 1e-3,
+                  f"finish {name}: kernel differs from plain ({row})")
+            rows.append(row)
+    return {"phase": "finish_timing", "rows": rows}
 
 
 def _hits_per_ray(res, grid, exit_port_z):
@@ -282,9 +325,10 @@ def phase_scale(device, n=N_SCALE, seed=100, window=EXIT_WINDOW):
     """Trace-only throughput of both engines at n rays (one warm run, one
     timed run each).  The simulate engine's run is this slice's main path:
     the kernel counts are set to 0 just before it and read just after.
-    ``waves`` lists the wave tracer's plans (the ``loop.waves`` spans) of
-    the warm run, traced, in call order: the refill handoff's straggler
-    finish, then the rim continuation; the timed run is not traced."""
+    ``finish`` lists the finish kernel's launches (the ``kernel.finish``
+    spans' ``exact_rim``) of the warm run, traced, in call order: for the
+    simulate engine the refill handoff's straggler finish, then the rim
+    continuation; the timed run is not traced.  No waves loop runs."""
     from altair_tpu_torch import (SCENE_OPTIMIZE, SOURCE_OVERNIGHT,
                                   TraceConfig, trace_rays_auto)
     from altair_tpu_torch.io import profiling
@@ -312,16 +356,18 @@ def phase_scale(device, n=N_SCALE, seed=100, window=EXIT_WINDOW):
         out[engine] = {"s": dt, "rays_per_s": n / dt, "exit_fraction": frac,
                        "rim_overflow": int(rim),
                        "launches": launches(),
-                       "waves": [{k: s["attrs"][k]
-                                  for k in ("width", "waves", "tail")}
-                                 for s in profiling.records()["spans"]
-                                 if s["name"] == "loop.waves"]}
+                       "finish": [s["attrs"]["exact_rim"]
+                                  for s in profiling.records()["spans"]
+                                  if s["name"] == "kernel.finish"],
+                       "loops": sorted({s["name"] for s in
+                                        profiling.records()["spans"]
+                                        if s["name"].startswith("loop.")})}
     check(out["simulate"]["launches"]["refill"] > 0,
           "scale: the simulate engine never launched the refill kernel")
-    check(len(out["simulate"]["waves"]) == 2,
+    check(out["simulate"]["finish"] == [False, True]
+          and not out["simulate"]["loops"],
           "scale: the simulate engine did not finish both the handoff and "
-          f"the rim continuation in the waves tracer: "
-          f"{out['simulate']['waves']}")
+          f"the rim continuation in the finish kernel: {out['simulate']}")
     fa, fs = out["auto"]["exit_fraction"], out["simulate"]["exit_fraction"]
     check(abs(fa - fs) < 4 * math.sqrt(2 * fa * (1 - fa) / n),
           f"scale: engines disagree, {fa} vs {fs}")
@@ -460,11 +506,11 @@ def phase_refill_timing(device, sizes=(1 << 20, N_SCALE)):
     plain version once at each n (per-slot agreement, live planes and
     time), at the first size also without the handoff and the other three
     laws against theirs, the kernel without the handoff, the bounce kernel
-    at the same n, and the stragglers' finish in the waves tracer.  Each row records the
+    at the same n, and the stragglers' finish in the finish kernel.  Each row records the
     bounce steps the kernel ran and the bytes it wrote, for its bound.
     The lane-static kernel this one replaced is not timed here; its times
     are those of the earlier calls recorded in PERF.md."""
-    from altair_tpu_torch import SurfaceModel, TraceConfig
+    from altair_tpu_torch import SurfaceModel
     from altair_tpu_torch.core import trace_cuda
     from altair_tpu_torch.profile_refill import traced_steps
 
@@ -497,8 +543,8 @@ def phase_refill_timing(device, sizes=(1 << 20, N_SCALE)):
             sync(device)
             t0 = time.perf_counter()
             fin, ovf = trace_cuda._refill_handoff_continue(
-                torch.Generator().manual_seed(i), scene, TraceConfig(), res,
-                live, srcv, budget, thresh, device)
+                torch.Generator().manual_seed(i), scene, res, live, srcv,
+                budget, thresh, device)
             int(ovf)
             sync(device)
             cont_s.append(time.perf_counter() - t0)
@@ -1548,7 +1594,9 @@ def main() -> int:
         with open(_build.library_path(name).with_suffix(".log")) as fh:
             ptxas[name] = [ln.strip() for ln in fh
                            if "registers" in ln or "spill" in ln]
-        # the Lambertian, philox instantiation: the main path's
+    for name in ("bounce", "refill"):
+        # the Lambertian, philox instantiation: the main path's (the
+        # finish kernel's bound is its longest lane's chain)
         mix[name] = profile_refill.sass_step_mix(
             _build.library_path(name), f"{name}_kernelILi0ELb0E")
     crd = profile_refill.card()
@@ -1562,6 +1610,8 @@ def main() -> int:
     emit(phase_kernel_vs_plain(device))
     refill_hash = phase_refill_vs_plain(device)
     emit(refill_hash)
+    finish_plain_rows = phase_finish_vs_plain(device)
+    emit(finish_plain_rows)
 
     direct = phase_headline(device, "auto", seed=args.seed)
     emit(direct)
@@ -1574,7 +1624,9 @@ def main() -> int:
     profiling.clear()
     sim = phase_headline(device, "simulate", seed=args.seed + 1000)
     n_sim = launches()["bounce"]
+    n_fin = launches()["finish"]
     sim["bounce_launches"] = n_sim
+    sim["finish_launches"] = n_fin
     sim["bounce_rays"] = profiling.records()["totals"].get(
         "kernel.bounce.rays", 0)
     emit(sim)
@@ -1594,6 +1646,8 @@ def main() -> int:
     emit(timing)
     refill_timing = phase_refill_timing(device)
     emit(refill_timing)
+    finish_timing = phase_finish_timing(device)
+    emit(finish_timing)
     emit(phase_simulate_e2e(device))
 
     # the retrace flux-map path: Sobol draws, the binomial map at bench
@@ -1638,6 +1692,9 @@ def main() -> int:
                        insphere["simulate_chunk"]["launches"]["refill"],
                    "mesh_trace_simulate":
                        mesh_out["trace_simulate"]["launches"]["refill"]},
+        "finish": {"headline_simulate": n_fin,
+                   "scale_auto": scale["auto"]["launches"]["finish"],
+                   "scale_simulate": scale["simulate"]["launches"]["finish"]},
     }
     for name, by_path in path_launches.items():
         for path, count in by_path.items():
@@ -1655,21 +1712,30 @@ def main() -> int:
         "refill": kernel_bound(mix["refill"], crd, r_main["traced_steps"],
                                r_main["bytes"]),
     }
+    # the finish kernel's row is the MIXED_BRDF map's rim continuation;
+    # its bound that call's longest lane's chain
+    f_main = finish_timing["rows"][0]
+    bounds["finish"] = {"bound_ms": f_main["bound_ms"],
+                        "bound_by": "operations", "binds": "serial chain"}
+    finish_err = max(_errors(finish_plain_rows) + _errors(finish_timing))
     emit({"phase": "bounds", "card": crd, **bounds,
           "share": {"bounce": bounds["bounce"]["bound_ms"]
                     / timing["kernel_ms"],
                     "refill": bounds["refill"]["bound_ms"]
-                    / r_main["refill_ms"]}})
+                    / r_main["refill_ms"],
+                    "finish": f_main["bound_ms"] / f_main["kernel_ms"]}})
     rows = {
         "bounce": (sum(path_launches["bounce"].values()), bounce_err,
                    timing["kernel_ms"], timing["plain_ms"]),
         "refill": (sum(path_launches["refill"].values()), refill_err,
                    r_main["refill_ms"], r_main["plain_ms"]),
+        "finish": (sum(path_launches["finish"].values()), finish_err,
+                   f_main["kernel_ms"], f_main["plain_ms"]),
     }
     emit({"phase": "launches_by_path", **path_launches})
     print(smi)
     # launches: the sum over the main paths' runs, each counted from 0;
-    # no single PyTorch call computes either kernel's function, so
+    # no single PyTorch call computes any kernel's function, so
     # library_ms is null
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": trace_cuda.KERNELS[name][0],

@@ -1,0 +1,82 @@
+"""The CUDA finish kernel against its plain PyTorch version, on the card.
+
+Needs an NVIDIA GPU (sm_90a) and nvcc; skips elsewhere.  This file
+imports neither JAX nor ``altair_tpu`` (the GPU machine has no JAX), so on
+that machine run it without the suite's conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_finish_cuda.py -q
+"""
+
+import pytest
+import torch
+
+from altair_tpu_torch import (SCENE_OPTIMIZE, SOURCE_OVERNIGHT, SurfaceModel,
+                              TraceConfig, trace_rays_auto)
+from altair_tpu_torch import profile_finish
+from altair_tpu_torch.core import trace_cuda
+from altair_tpu_torch.io import profiling
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def totals(name: str) -> int:
+    return profiling.records()["totals"].get(name, 0)
+
+
+@pytest.mark.parametrize("exact_rim", [True, False])
+@pytest.mark.parametrize("model", list(SurfaceModel))
+def test_kernel_matches_plain(cuda, model, exact_rim):
+    """Built with -fmad=false, the kernel does the plain version's float
+    operations with the same CUDA math library: on a state with lanes in
+    the gap, interior, dead and (at a 256-step cap) suspended, status and
+    bounce count are equal on every lane, positions and directions within
+    1e-3 cm (NaN where both are NaN)."""
+    call = profile_finish.mixed_entry_state(cuda, model)
+    call["exact_rim"] = exact_rim
+    kinds = profile_finish.lane_kinds(call["state"])
+    assert min(kinds.values()) > 0, kinds
+    n = call["state"][3].shape[0]
+    launches, rays = totals("kernel.finish.launches"), totals(
+        "kernel.finish.rays")
+    k = trace_cuda.finish(**call)
+    torch.cuda.synchronize()
+    assert totals("kernel.finish.launches") == launches + 1
+    assert totals("kernel.finish.rays") == rays + n
+    p = trace_cuda.finish_plain(**call)
+    assert torch.equal(k.status, p.status)
+    assert torch.equal(k.n_bounces, p.n_bounces)
+    assert (k.status == 3).any() and not (k.status == 0).any()
+    # dead padding lanes pass their state through, NaN directions and all
+    for f in ("last_point", "seg_start", "direction"):
+        for a, b in zip(getattr(k, f), getattr(p, f)):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-3,
+                                       equal_nan=True, msg=f)
+
+
+@pytest.mark.parametrize("n,finishes", [(100_000, [True]),
+                                        (1 << 20, [False, True])])
+def test_main_paths_launch_finish(cuda, n, finishes):
+    """The simulate engine of an exact-rim MIXED_BRDF scene runs the rim
+    continuation, and above REFILL_MIN first the straggler finish, as one
+    finish launch each, and no eager or waves loop under them."""
+    scene = SCENE_OPTIMIZE.with_(max_bounces=4096,
+                                 surface_model=SurfaceModel.MIXED_BRDF)
+    profiling.clear()
+    with profiling.tracing():
+        res, ovf = trace_rays_auto(torch.Generator().manual_seed(4), scene,
+                                   SOURCE_OVERNIGHT, n,
+                                   TraceConfig(engine="simulate"),
+                                   device=cuda)
+    assert int(ovf) == 0 and not bool((res.status == 0).any())
+    spans = profiling.records()["spans"]
+    profiling.clear()
+    assert [s["attrs"]["exact_rim"] for s in spans
+            if s["name"] == "kernel.finish"] == finishes
+    assert not [s for s in spans if s["name"] in ("loop.eager", "loop.waves")]

@@ -109,10 +109,11 @@ def test_rim_deferred_exit_fraction(port):
 
 @pytest.mark.parametrize("path", ["in_loop_rim", "deferred_mixed_brdf"])
 def test_eager_rim_paths_exit_fraction(path):
-    """The eager exact-rim paths the Lambertian slice does not reach:
+    """The exact-rim paths the Lambertian slice does not reach:
     ``trace_rays`` with the rim in the loop, and the deferred post-pass of
-    a MIXED_BRDF scene, whose continuation runs the eager exact-rim loop to
-    extinction.  Exit fraction within 4 sigma of JAX's, no overflow."""
+    a MIXED_BRDF scene, whose continuation runs the finish kernel's
+    exact-rim step (its plain version here) to extinction.  Exit fraction
+    within 4 sigma of JAX's, no overflow."""
     from altair_tpu.config import SurfaceModel
     from altair_tpu.core.trace import trace_rays as j_trace
     from altair_tpu_torch.core.trace import trace_rays

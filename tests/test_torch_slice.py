@@ -93,45 +93,50 @@ def test_slice_matches_jax(engine):
 
 
 def test_large_batch_simulate_matches_jax(monkeypatch):
-    """The large-batch simulate path at a small size: with REFILL_MIN and
-    _WAVES_CONTINUATION_MIN lowered, the main trace runs the refill kernel
-    (its plain version here) with the tail handoff, its stragglers and the
-    rim continuation run the waves tracer, and the result matches JAX's
-    simulate engine within 4 sigma with zero overflow."""
-    calls = {"refill_plain": 0, "waves": []}
+    """The large-batch simulate path at a small size: with REFILL_MIN
+    lowered, the main trace runs the refill kernel (its plain version here)
+    with the tail handoff, its stragglers and the rim continuation each run
+    one finish (the finish kernel's plain version here), and the result
+    matches JAX's simulate engine within 4 sigma with zero overflow."""
+    calls = {"refill_plain": 0, "finish": []}
     real_plain = trace_cuda.refill_plain
-    real_waves = trace_waves.trace_waves_from_state
+    real_finish = trace_cuda.finish
 
     def spy_plain(*a, **k):
         calls["refill_plain"] += 1
         return real_plain(*a, **k)
 
-    def spy_waves(gen, scene, state, *a, **k):
-        calls["waves"].append((state[0].x.shape[0], bool(scene.exact_rim)))
-        return real_waves(gen, scene, state, *a, **k)
+    def spy_finish(seed, scene_vec, rim_vec, state, model, max_iters,
+                   exact_rim):
+        calls["finish"].append((state[0].x.shape[0], bool(exact_rim)))
+        return real_finish(seed, scene_vec, rim_vec, state, model,
+                           max_iters, exact_rim)
 
     monkeypatch.setattr(trace_cuda, "refill_plain", spy_plain)
-    monkeypatch.setattr(trace_waves, "trace_waves_from_state", spy_waves)
+    monkeypatch.setattr(trace_cuda, "finish", spy_finish)
     monkeypatch.setattr(trace_cuda, "REFILL_MIN", 1024)
-    monkeypatch.setattr(trace_mod, "_WAVES_CONTINUATION_MIN", 1024)
     _assert_slice_matches_jax("simulate", 19)
     assert calls["refill_plain"] == 1
     # the handoff's stragglers (simple mode), then the rim continuation
     # at N >> 4 lanes (exact rim)
     lanes = trace_cuda.REFILL_LANES * trace_cuda._REFILL_BUDGET
     thresh = int(trace_cuda._REFILL_HANDOFF * lanes)
-    assert calls["waves"] == [(N // lanes * thresh, False), (N >> 4, True)]
+    assert calls["finish"] == [(N // lanes * thresh, False), (N >> 4, True)]
 
 
 @pytest.mark.parametrize("where", ["handoff", "rim"])
 def test_overflow_reaches_rim_total(monkeypatch, where):
-    """A waves continuation whose schedule is too tight loses rays; the
-    count reaches RimOverflow.total, from the refill handoff's straggler
-    finish (simple mode) and from the rim continuation (exact rim)."""
+    """A waves continuation whose schedule is too tight loses rays, and the
+    count reaches RimOverflow.total: the rim continuation of a float64
+    scene (exact rim), which the kernels do not take.  The refill
+    handoff's straggler finish (simple mode) runs the finish kernel, which
+    loses no ray: there the total is 0 and no waves tracer runs."""
     real_waves = trace_waves.trace_waves_from_state
+    calls = []
 
     def tight_waves(gen, scene, state, cfg=T.TraceConfig(), *a, device,
                     **k):
+        calls.append(state[0].x.shape[0])
         return real_waves(gen, scene, state, cfg, wave_iters=4, shrink=64,
                           min_wave=4, device=device)
 
@@ -140,10 +145,15 @@ def test_overflow_reaches_rim_total(monkeypatch, where):
                         1024 if where == "handoff" else 1 << 30)
     monkeypatch.setattr(trace_mod, "_WAVES_CONTINUATION_MIN", 256)
     scene = convert.scene(SCENE.with_(exact_rim=where == "rim"))
+    dtype = torch.float64 if where == "rim" else torch.float32
     _, ovf = T.trace_rays_auto(torch.Generator().manual_seed(2), scene,
                                convert.source(SOURCE_OVERNIGHT), 8192,
-                               T.TraceConfig(engine="simulate"), device="cpu")
-    assert int(ovf) > 0
+                               T.TraceConfig(engine="simulate", dtype=dtype),
+                               device="cpu")
+    if where == "rim":
+        assert calls and int(ovf) > 0
+    else:
+        assert calls == [] and int(ovf) == 0
 
 
 @pytest.mark.parametrize("engine", ["auto", "simulate"])

@@ -207,7 +207,7 @@ def test_trace_children_cover_its_host_time(route, scene, cfg):
     assert covered >= 0.95 * (top["end_ns"] - top["start_ns"])
     (cont,) = [s for s in spans if s["name"] == "trace.rim.cont"]
     assert cont["attrs"]["kind"] == ("hybrid" if route == "direct"
-                                     else "eager")
+                                     else "kernel")
     assert cont["parent"] == kids[1]["id"]
     assert all(s["root"] == top["id"] for s in spans)
 
