@@ -15,7 +15,9 @@ refill kernel with ``_REFILL_BUDGET`` rays per lane and the tail handoff
 at ``_REFILL_HANDOFF``, whose stragglers finish in the finish kernel;
 smaller batches run the bounce kernel.  The finish kernel also runs the
 deferred rim post-pass's continuation (``finish_from_state``), which the
-JAX package runs as an XLA loop.
+JAX package runs as an XLA loop, and traces thick-rim scenes from the
+source in one launch (``trace_rays_finish``), where the JAX package runs
+its in-loop exact-rim ``trace_rays``.
 """
 
 from __future__ import annotations
@@ -611,7 +613,7 @@ def _finish_fn():
 
 
 def _finish_cuda(seed, scene_vec, rim_vec, state, model, max_iters,
-                 exact_rim):
+                 exact_rim, entry):
     dev = scene_vec.device
     pos, direction, prev, status, bounces, in_gap = state
     n = status.shape[0]
@@ -625,7 +627,8 @@ def _finish_cuda(seed, scene_vec, rim_vec, state, model, max_iters,
         planes = [t.contiguous() for t in (*pos, *direction, *prev, status,
                                            bounces, in_gap)]
         fn = _finish_fn()
-        with (span("kernel.finish", n=n, exact_rim=bool(exact_rim)),
+        with (span("kernel.finish", n=n, exact_rim=bool(exact_rim),
+                   entry=entry),
               torch.cuda.device(dev)):
             err = fn(scene_vec.data_ptr(), rim_vec.data_ptr(),
                      int(seed[0]) & _M32, int(seed[1]) & _M32,
@@ -643,7 +646,7 @@ def _finish_cuda(seed, scene_vec, rim_vec, state, model, max_iters,
 
 
 def finish(seed, scene_vec, rim_vec, state, model, max_iters: int,
-           exact_rim: bool) -> TraceResult:
+           exact_rim: bool, *, entry: str = "state") -> TraceResult:
     """Run the mid-flight ray state ``state`` (the bounce-step carry
     ``(pos, direction, prev, status, bounces, in_gap)`` of
     ``trace.make_bounce_step``: float32, int32 and bool planes of one
@@ -658,11 +661,13 @@ def finish(seed, scene_vec, rim_vec, state, model, max_iters: int,
     stream, counter (lane, step from entry, draw group); ``scene_vec`` as
     from ``kernel_operands``, ``rim_vec`` from ``rim_operand``, on the
     device to run on.  A CUDA ``scene_vec`` launches the CUDA kernel; a
-    CPU one runs ``finish_plain``."""
+    CPU one runs ``finish_plain``.  ``entry`` names the launch on its
+    ``kernel.finish`` span: ``"source"`` for a buffer of fresh source rays
+    (``trace_rays_finish``), ``"state"`` for rays already in flight."""
     _check_finish_args(seed, scene_vec, rim_vec, state, model, max_iters)
     if scene_vec.device.type == "cuda":
         return _finish_cuda(seed, scene_vec, rim_vec, state, model,
-                            max_iters, exact_rim)
+                            max_iters, exact_rim, entry)
     if scene_vec.device.type == "cpu":
         return finish_plain(seed, scene_vec, rim_vec, state, model,
                             max_iters, exact_rim)
@@ -679,6 +684,63 @@ def finish_from_state(gen: torch.Generator, scene: SphereScene, state, *,
     return finish(seed_pair(gen), scene_vec, rim_operand(scene, dev), state,
                   SurfaceModel(scene.surface_model), int(scene.max_bounces),
                   exact_rim)
+
+
+def thick_rim(scene: SphereScene) -> bool:
+    """An exact rim too wide for the deferred post-pass: scalar scene
+    parameters that ``rim_deferred_capacity_shift`` rejects."""
+    import numbers
+
+    return (bool(scene.exact_rim)
+            and all(isinstance(v, numbers.Number)
+                    for v in (scene.theta_max_deg, scene.reflectance,
+                              scene.inner_radius, scene.outer_radius))
+            and rim_deferred_capacity_shift(scene) is None)
+
+
+def finish_route_applicable(scene: SphereScene, cfg: TraceConfig) -> bool:
+    """True when ``trace_rays_auto`` traces from the source with one
+    finish launch (``trace_rays_finish``): a thick rim, a static law,
+    float32 and no path history."""
+    return (thick_rim(scene) and _model_supported(scene)
+            and cfg.dtype == torch.float32 and not cfg.keep_history)
+
+
+def trace_rays_finish(
+    gen: torch.Generator,
+    scene: SphereScene,
+    source: Source,
+    n_rays: int,
+    cfg: TraceConfig = TraceConfig(),
+    *,
+    device,
+) -> tuple[TraceResult, RimOverflow]:
+    """Trace ``n_rays`` from ``source`` with the in-loop exact-rim physics
+    of ``trace_rays`` in one launch of the finish kernel: the bounce-step
+    carry built at the source (every lane at the source point with the
+    normalised source direction, ``prev`` the source, RUNNING, no bounce,
+    none in the gap), at most ``scene.max_bounces`` steps, the seed words
+    drawn from the CPU key ``gen``.  The route of thick-rim scenes, whose
+    rim the deferred post-pass cannot take (``finish_route_applicable``).
+
+    Returns ``(TraceResult, RimOverflow)``; the kernel drops no ray, so
+    the overflow is zero."""
+    _check_simulate(scene, cfg)
+    if not scene.exact_rim:
+        raise NotImplementedError(
+            "trace_rays_finish traces exact-rim scenes; simple-mode scenes "
+            "go through trace_rays_fast")
+    scene_vec, src_vec = kernel_operands(scene, source, device)
+    px, py, pz, dx, dy, dz = src_vec[:6, None].expand(6, n_rays) \
+        .contiguous().unbind(0)
+    pos = Vec3(px, py, pz)
+    zeros = torch.zeros((n_rays,), dtype=torch.int32, device=device)
+    state = (pos, Vec3(dx, dy, dz), pos, zeros, zeros,
+             torch.zeros((n_rays,), dtype=torch.bool, device=device))
+    res = finish(seed_pair(gen), scene_vec, rim_operand(scene, device), state,
+                 SurfaceModel(scene.surface_model), int(scene.max_bounces),
+                 exact_rim=True, entry="source")
+    return res, no_overflow(device)
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,8 @@ from .trace import (ABSORBED, RUNNING, SUSPENDED, RimOverflow, TraceResult,
                     rim_deferred_capacity_shift, split, trace_rays,
                     trace_rays_rim_deferred)
 from . import trace_cuda
-from .trace_cuda import kernel_applicable, trace_rays_fast
+from .trace_cuda import (finish_route_applicable, kernel_applicable,
+                         trace_rays_fast, trace_rays_finish)
 from .trace_direct import direct_applicable, trace_rays_direct
 
 
@@ -221,7 +222,10 @@ def trace_rays_auto(
     * scenes the kernels take run the simulate engine ``trace_rays_fast``
       (the bounce kernel, or the refill kernel and its straggler finish at
       n >= ``trace_cuda.REFILL_MIN``, plus the deferred rim post-pass);
-    * the rest (float64, or a thick rim) run ``trace_rays_waves`` at
+    * a thick rim (one the deferred post-pass cannot take) under a static
+      law in float32 runs ``trace_rays_finish``: the in-loop exact-rim
+      physics from the source in one launch of the finish kernel;
+    * the rest (float64, a scatter callable) run ``trace_rays_waves`` at
       ``n_rays >= waves_threshold`` when ``waves_safe``, else the eager
       ``trace_rays``: under the deferred rim post-pass when the rim admits
       it, with the in-loop exact rim otherwise.
@@ -235,8 +239,8 @@ def trace_rays_auto(
     callable is no static law, so it runs the waves or eager tracers.
 
     The span ``trace``, with ``n_rays`` and the ``route`` taken:
-    ``direct``, ``bounce`` or ``refill`` (the kernels), ``waves`` or
-    ``eager``.
+    ``direct``, ``bounce`` or ``refill`` (the kernels), ``finish`` (the
+    thick rim from the source), ``waves`` or ``eager``.
     """
     if cfg.engine not in ("auto", "simulate", "direct"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
@@ -269,6 +273,10 @@ def _dispatch(sp, gen, scene, source, n_rays, cfg, waves_threshold, device):
         raise NotImplementedError(
             "engine='direct' requires a statically-Lambertian scene whose "
             "rim (if exact_rim) admits the deferred post-pass")
+    if finish_route_applicable(scene, cfg):
+        sp.set(route="finish")
+        return trace_rays_finish(gen, scene, source, n_rays, cfg,
+                                 device=device)
     if kernel_applicable(scene, cfg):
         sp.set(route="refill" if n_rays >= trace_cuda.REFILL_MIN
                else "bounce")

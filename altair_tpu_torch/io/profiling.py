@@ -29,7 +29,10 @@ Counters the port keeps (names as ``records()`` gives them):
 * ``kernel.bounce.launches``, ``kernel.refill.launches``,
   ``kernel.finish.launches`` and ``kernel.<name>.rays`` (the rays those
   launches took), always; each launch's size is also the ``n`` of its
-  ``kernel.<name>`` span (``kernel.finish`` also says ``exact_rim``);
+  ``kernel.<name>`` span (``kernel.finish`` also says ``exact_rim`` and
+  ``entry``: ``source`` or ``state``);
+* ``insphere.disk_tests``: ray-disk pairs the in-sphere sweep tested
+  (rays times the disks each was tested against), always;
 * ``lane_steps_issued`` and ``lane_steps_live``: per eager or waves loop,
   its width times the iterations run (host), and the lane-steps whose ray
   was running at the step's start (summed on the device, read when

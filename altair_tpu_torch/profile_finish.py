@@ -5,10 +5,12 @@ its bound.
     python -m altair_tpu_torch.profile_finish [--reps R] [--out FILE]
 
 For each main path that runs it — the MIXED_BRDF trace-once map's rim
-continuation (100,000 rays, exact rim; the bounce kernel's path) and the
+continuation (100,000 rays, exact rim; the bounce kernel's path), the
 4,194,304-ray trace's straggler finish and rim continuation (the refill
-kernel's path) — it records the ``finish`` calls of one simulate trace
-(``finish_calls``), then replays each: the kernel under CUDA events (mean
+kernel's path) and the in-sphere retrace sweep's chunk (800,000 rays from
+the source through the thick 105 cm shell, ``trace_rays_finish``) — it
+records the ``finish`` calls of one trace (``finish_calls``), then
+replays each: the kernel under CUDA events (mean
 of ``R`` launches after a warm one), ``finish_plain`` once on the host
 clock, the lanes on which the two agree (status and bounces) and the
 largest position or direction difference on them, and the bound: the
@@ -32,20 +34,25 @@ MAX_BOUNCES = 4096
 # the paths timed: (name, law, rays)
 PATHS = (("map100k_rim", "MIXED_BRDF", 100_000),
          ("trace4M", "MIXED_BRDF", 4_194_304))
+# the in-sphere retrace sweep's chunk: 8 positions of 100,000 rays
+INSPHERE_CHUNK = 800_000
 
 
-def finish_calls(device, scene, n: int, seed: int = 0) -> list[dict]:
+def finish_calls(device, scene, n: int, seed: int = 0,
+                 source=None) -> list[dict]:
     """The arguments of every ``trace_cuda.finish`` call of one
     ``trace_rays_auto(engine="simulate")`` trace of ``n`` rays of
-    ``scene`` from ``SOURCE_OVERNIGHT``, in call order, as keyword
-    dictionaries of ``finish`` (the state planes made dense)."""
+    ``scene`` from ``source`` (default ``SOURCE_OVERNIGHT``), in call
+    order, as keyword dictionaries of ``finish_plain`` (the state planes
+    made dense)."""
     from . import SOURCE_OVERNIGHT, TraceConfig, trace_rays_auto
     from .core import trace_cuda
 
     calls = []
     real = trace_cuda.finish
 
-    def spy(seed, scene_vec, rim_vec, state, model, max_iters, exact_rim):
+    def spy(seed, scene_vec, rim_vec, state, model, max_iters, exact_rim,
+            **kw):
         calls.append(dict(seed=seed, scene_vec=scene_vec, rim_vec=rim_vec,
                           state=(*(type(v)(*(c.contiguous() for c in v))
                                    for v in state[:3]),
@@ -53,16 +60,34 @@ def finish_calls(device, scene, n: int, seed: int = 0) -> list[dict]:
                           model=model, max_iters=max_iters,
                           exact_rim=exact_rim))
         return real(seed, scene_vec, rim_vec, state, model, max_iters,
-                    exact_rim)
+                    exact_rim, **kw)
 
     trace_cuda.finish = spy
     try:
         trace_rays_auto(torch.Generator().manual_seed(seed), scene,
-                        SOURCE_OVERNIGHT, n, TraceConfig(engine="simulate"),
-                        device=device)
+                        SOURCE_OVERNIGHT if source is None else source, n,
+                        TraceConfig(engine="simulate"), device=device)
     finally:
         trace_cuda.finish = real
     return calls
+
+
+def source_entry_call(device, model=None, n: int = INSPHERE_CHUNK,
+                      max_iters: int | None = None, seed: int = 0) -> dict:
+    """The ``finish`` arguments of the thick-rim route from the source
+    (``trace_rays_finish``): ``n`` rays of the in-sphere sweep's shell
+    (``SCENE_INSPHERE``, its law ``model``, default Lambertian) from
+    ``SOURCE_DEMO``; ``max_iters`` (default the scene's 10,000) caps the
+    steps."""
+    from . import SCENE_INSPHERE, SOURCE_DEMO, SurfaceModel
+
+    scene = SCENE_INSPHERE
+    if model is not None:
+        scene = scene.with_(surface_model=SurfaceModel(model))
+    (call,) = finish_calls(device, scene, n, seed, SOURCE_DEMO)
+    if max_iters is not None:
+        call["max_iters"] = max_iters
+    return call
 
 
 def mixed_entry_state(device, model, n: int = 20_000, n_interior: int = 2048,
@@ -194,15 +219,19 @@ def main(argv=None) -> int:
     crd = card()
     latency = finish_step_latency_ms(device)
     lines = []
-    for name, law, n in PATHS:
-        scene = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES,
-                                     surface_model=SurfaceModel[law])
-        for call in finish_calls(device, scene, n, args.seed):
-            lines.append({"path": name, "law": law, "rays": n,
-                          **time_call(call, latency, args.reps),
-                          "card": crd["name"],
-                          "power_limit_w": crd["power_limit_w"]})
-            print(json.dumps(lines[-1]), flush=True)
+    calls = [(name, law, n, call) for name, law, n in PATHS
+             for call in finish_calls(
+                 device, SCENE_OPTIMIZE.with_(
+                     max_bounces=MAX_BOUNCES,
+                     surface_model=SurfaceModel[law]), n, args.seed)]
+    calls.append(("insphere105_source", "LAMBERTIAN", INSPHERE_CHUNK,
+                  source_entry_call(device, seed=args.seed)))
+    for name, law, n, call in calls:
+        lines.append({"path": name, "law": law, "rays": n,
+                      **time_call(call, latency, args.reps),
+                      "card": crd["name"],
+                      "power_limit_w": crd["power_limit_w"]})
+        print(json.dumps(lines[-1]), flush=True)
     if args.out:
         with open(args.out, "w") as fh:
             fh.write("".join(json.dumps(x) + "\n" for x in lines))

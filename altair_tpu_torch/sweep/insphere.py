@@ -27,11 +27,13 @@ from ..core.geometry import Vec3
 from ..core.score import (_pad_positions, hits_insphere_disks,
                           insphere_disk_hit_mask, insphere_disk_position)
 from ..core.trace import fold_in
+from ..io.profiling import count, span
 from ..parallel.mesh import on_rank0
 # engine dispatch: the disk lives outside the sphere, so any engine's
 # final-segment contract feeds the disk test (the corpus scene's thick
-# shell keeps it on the in-loop rim tracers; thin-shell scenes get the
-# direct sampler or the kernels)
+# shell takes the finish kernel from the source in float32, the in-loop
+# rim tracers otherwise; thin-shell scenes get the direct sampler or the
+# kernels)
 from ..core.trace_waves import trace_rays_auto
 
 
@@ -44,26 +46,71 @@ class InsphereSweepResult:
     wall_time_s: float
 
 
+def _lap_end(device) -> float:
+    """The host clock once the device has finished what was launched."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def _score(res, cen, nrm, disk_radius, chunk=None):
+    """The disk test of one traced batch under the span ``score.insphere``
+    (``disks``, ``rays``), counted in ``insphere.disk_tests``: with
+    ``chunk``, the batch's rays in ``chunk`` runs of fresh rays, each
+    tested against its own disk (``cen``/``nrm`` per ray; ``[chunk]``
+    counts); else every ray against every disk (``cen``/``nrm`` the
+    ``[P, 3]`` placements; ``[P]`` counts)."""
+    rays = res.status.shape[0]
+    disks = cen.shape[0] if chunk is None else chunk
+    with span("score.insphere", disks=disks, rays=rays):
+        if chunk is None:
+            counts = hits_insphere_disks(res, cen, nrm, disk_radius)
+            count("insphere.disk_tests", rays * disks)
+        else:
+            ok = insphere_disk_hit_mask(res, cen, nrm, disk_radius)
+            counts = ok.view(chunk, rays // chunk).sum(1, dtype=torch.int32)
+            count("insphere.disk_tests", rays)
+    return counts
+
+
 def _retrace_counts(key, scene, source, C, Nrm, disk_radius, n_rays, cfg,
-                    chunk, device):
+                    chunk, device, laps=None):
     """Fresh rays for every disk: chunk ``i`` traces ``n_rays * chunk`` rays
     from ``fold_in(key, i)``, and ray ``j`` belongs to disk ``i * chunk +
-    j // n_rays``.  Returns ``([P] int32 counts, overflow)`` on the device."""
+    j // n_rays``.  Returns ``([P] int32 counts, overflow)`` on the device.
+    ``laps``: see ``sweep_insphere_detector``'s ``stats``; the chunks'
+    bounce sums stay on the device until the caller reads them."""
     P = C.shape[0]
     n_chunks = -(-P // chunk)
     C, Nrm = _pad_positions(C, Nrm, n_chunks * chunk)
     overflow = torch.zeros((), dtype=torch.int32, device=device)
     counts = []
     for i in range(n_chunks):
+        t0 = time.perf_counter()
         res, rim = trace_rays_auto(fold_in(key, i), scene, source,
                                    n_rays * chunk, cfg, device=device)
+        t1 = _lap_end(device) if laps is not None else None
         overflow = overflow + rim.total
         sl = slice(i * chunk, (i + 1) * chunk)
         cen = Vec3(*C[sl].repeat_interleave(n_rays, 0).unbind(1))
         nrm = Vec3(*Nrm[sl].repeat_interleave(n_rays, 0).unbind(1))
-        ok = insphere_disk_hit_mask(res, cen, nrm, disk_radius)
-        counts.append(ok.view(chunk, n_rays).sum(1, dtype=torch.int32))
+        counts.append(_score(res, cen, nrm, disk_radius, chunk))
+        if laps is not None:
+            _add_laps(laps, device, res, (t0, t1), chunk)
     return torch.cat(counts)[:P], overflow
+
+
+def _add_laps(laps, device, res, trace_lap, n_disks):
+    """Record one batch's trace lap and the disk count's lap after it
+    (both ended by a device sync); the bounce sum is taken after both."""
+    t2 = _lap_end(device)
+    rays = res.status.shape[0]
+    laps["trace"].append({"start": trace_lap[0], "end": trace_lap[1],
+                          "rays": rays,
+                          "bounce_steps": res.n_bounces.sum(
+                              dtype=torch.int64)})
+    laps["score"].append({"start": trace_lap[1], "end": t2,
+                          "disks": n_disks, "rays": rays})
 
 
 def sweep_insphere_detector(
@@ -84,6 +131,7 @@ def sweep_insphere_detector(
     save_path: str | None = "detector_sweep3.txt",
     aimed: bool = False,
     mesh=None,
+    stats: dict | None = None,
 ) -> InsphereSweepResult:
     """Sweep the focal-surface disk over theta in [-theta_max, theta_max]
     (inclusive, like the reference's ``theta <= thetaMax`` loop) x phi in
@@ -102,11 +150,36 @@ def sweep_insphere_detector(
     ``mesh``: split the ray axis over the mesh's ranks for both
     methodologies (``parallel.sharded_insphere``, one sum); ``pos_chunk``
     is then per device (None: ``sharded_insphere``'s default), and rank 0
-    writes ``save_path``."""
-    t0 = time.perf_counter()
+    writes ``save_path``.
+    ``stats``: a dict to time the single-device sweep in; it receives
+    ``"trace"`` and ``"score"``, one lap per traced batch each (a chunk, or
+    the one trace-once batch): ``start`` and ``end`` on the host clock
+    (``time.perf_counter``), each ended by a device sync, with ``rays`` and
+    ``bounce_steps`` (the batch's ``n_bounces`` sum) for the trace and
+    ``disks`` and ``rays`` for the disk count.  The syncs and the bounce
+    sums are only taken when ``stats`` is given; the results are the same.
+
+    The span ``sweep.insphere`` (``positions``, ``chunks``, ``n_rays``,
+    ``retrace``) holds each batch's ``trace`` and ``score.insphere``."""
+    if stats is not None and mesh is not None:
+        raise ValueError("stats= times the single-device sweep")
     thetas = np.arange(-theta_max, theta_max + dtheta / 2, dtheta)
     phis = np.arange(0.0, 360.0, dphi)
+    with span("sweep.insphere", positions=len(thetas) * len(phis),
+              n_rays=n_rays, retrace=bool(retrace)) as sp:
+        return _sweep(sp, scene, source, device, disk_radius, n_rays,
+                      thetas, phis, placement_radius, seed, cfg, retrace,
+                      pos_chunk, save_path, aimed, mesh, stats)
+
+
+def _sweep(sp, scene, source, device, disk_radius, n_rays, thetas, phis,
+           placement_radius, seed, cfg, retrace, pos_chunk, save_path, aimed,
+           mesh, stats):
+    """``sweep_insphere_detector``'s body; names the chunks on ``sp``."""
+    t0 = time.perf_counter()
     key = torch.Generator().manual_seed(seed)
+    laps = (None if stats is None
+            else {k: stats.setdefault(k, []) for k in ("trace", "score")})
 
     # disk centres/normals for all positions
     tt = np.repeat(thetas, len(phis))
@@ -128,15 +201,25 @@ def sweep_insphere_detector(
         overflow = torch.zeros_like(counts[0])
     elif retrace:
         chunk = min(8 if pos_chunk is None else pos_chunk, len(tt))
+        sp.set(chunks=-(-len(tt) // chunk))
         counts, overflow = _retrace_counts(key, scene, source, C, Nrm,
                                            float(disk_radius), n_rays, cfg,
-                                           chunk, device)
+                                           chunk, device, laps)
     else:
+        sp.set(chunks=1)
+        t_tr = time.perf_counter()
         res, rim = trace_rays_auto(key, scene, source, n_rays, cfg,
                                    device=device)
-        counts = hits_insphere_disks(res, C, Nrm, float(disk_radius))
+        t_end = _lap_end(device) if laps is not None else None
+        counts = _score(res, C, Nrm, float(disk_radius))
         overflow = rim.total
+        if laps is not None:
+            _add_laps(laps, device, res, (t_tr, t_end), len(tt))
     *counts, overflow = torch.cat([counts, overflow.reshape(1)]).tolist()
+    if laps is not None:
+        for lap in laps["trace"]:
+            if isinstance(lap["bounce_steps"], torch.Tensor):
+                lap["bounce_steps"] = int(lap["bounce_steps"])
     if overflow:
         raise RuntimeError(
             f"in-sphere sweep: {overflow} rays unfinished — statistically "

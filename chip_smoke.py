@@ -19,11 +19,13 @@ simulate engine at 4M rays with and without the handoff.  The finish
 kernel is held against its plain version on states with lanes in the
 gap, interior, dead and at the cap, and timed at the main paths' shapes
 (the MIXED_BRDF map's rim continuation, the 4M trace's straggler finish
-and rim continuation) against its longest lane's serial chain.  The refill
-kernel (warp-owned lane pools) is held against its plain version at every
-size the main paths launch it with (2^20, 4,194,304 and the retrace
-chunk's), for the four laws with and without the handoff, and at 65,536
-rays against the lane-static schedule without it.  Each kernel's bound is
+and rim continuation, and the in-sphere retrace sweep's chunk of 800,000
+rays from the source) against its longest lane's serial chain.  The
+refill kernel (warp-owned lane pools) is held against its plain version
+at every size the main paths launch it with (2^20, 4,194,304 and the
+retrace chunk's), for the four laws with and without the handoff, and
+at 65,536 rays against the lane-static schedule without it.  Each
+kernel's bound is
 the larger of its bytes over the memory rate, the arithmetic of its
 per-step SASS instruction mix (cuobjdump) times the steps this run traced
 on its slowest pipe, and for the bounce kernel its longest ray's serial
@@ -35,8 +37,10 @@ binomial retrace map at bench size (50,000 rays per position, oversample
 one through the refill kernel) and a resume.  Then the studies: the
 port-angle series 163-178 in one call (and 4 members through the bounce
 kernel, and 2 sequential members with their folders), the in-sphere disk
-sweep of the corpus scene over 362 positions (plus a cut retrace, and a
-thin-shell simulate retrace chunk through the refill kernel), the
+sweep of the corpus scene over 362 positions, traced once and then with
+fresh rays for every position (the thick rim through the finish kernel
+from the source, one launch a chunk), and a thin-shell simulate retrace
+chunk through the refill kernel, the
 scatter-retrace sweep (and once with a MIXED_BRDF wall through the bounce
 kernel), 100 ray paths with history and their HTML view, and the
 ``fluxmap``, ``series``, ``insphere``, ``scatter-retrace`` and
@@ -211,21 +215,28 @@ def phase_finish_vs_plain(device):
 def phase_finish_timing(device):
     """The finish kernel at the main paths' shapes (``profile_finish``:
     the MIXED_BRDF trace-once map's rim continuation at 100,000 rays, the
-    4,194,304-ray trace's straggler finish and rim continuation): kernel
-    and plain times, agreement, and the serial-chain bound."""
+    4,194,304-ray trace's straggler finish and rim continuation, and last
+    the in-sphere retrace sweep's chunk of 800,000 rays from the source
+    through the thick shell): kernel and plain times, agreement, and the
+    serial-chain bound."""
     from altair_tpu_torch import SCENE_OPTIMIZE, SurfaceModel, profile_finish
 
     latency = profile_finish.finish_step_latency_ms(device)
+    calls = [(name, law, n, call) for name, law, n in profile_finish.PATHS
+             for call in profile_finish.finish_calls(
+                 device, SCENE_OPTIMIZE.with_(
+                     max_bounces=MAX_BOUNCES,
+                     surface_model=SurfaceModel[law]), n)]
+    calls.append(("insphere105_source", "LAMBERTIAN",
+                  profile_finish.INSPHERE_CHUNK,
+                  profile_finish.source_entry_call(device)))
     rows = []
-    for name, law, n in profile_finish.PATHS:
-        scene = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES,
-                                     surface_model=SurfaceModel[law])
-        for call in profile_finish.finish_calls(device, scene, n):
-            row = {"path": name, "law": law, "rays": n,
-                   **profile_finish.time_call(call, latency)}
-            check(row["agree"] == 1.0 and row["max_abs_err_cm"] <= 1e-3,
-                  f"finish {name}: kernel differs from plain ({row})")
-            rows.append(row)
+    for name, law, n, call in calls:
+        row = {"path": name, "law": law, "rays": n,
+               **profile_finish.time_call(call, latency)}
+        check(row["agree"] == 1.0 and row["max_abs_err_cm"] <= 1e-3,
+              f"finish {name}: kernel differs from plain ({row})")
+        rows.append(row)
     return {"phase": "finish_timing", "rows": rows}
 
 
@@ -1035,15 +1046,16 @@ def _sigma_apart(a, b, n_a, n_b):
 
 def phase_insphere(device, n=N_HEADLINE, seed=1200):
     """``sweep_insphere_detector`` as the macro runs it: the corpus scene
-    (outer radius 105 cm, a thick rim: the in-loop exact-rim tracers), the
-    macro's source, n rays, dtheta 0.5 over +-45 degrees x phi {0, 180} =
-    362 positions, traced once; the phi-averaged profile peaks within 6
-    degrees of the axis, as the corpus does.  Then the reference's
-    methodology at a cut depth: fresh rays for 16 positions, within 5
-    sigma per position of the trace-once fractions.  Then a thin-shell
-    scene through the simulate engine, 16 positions in one chunk of 16 x n
-    rays: at n = 100,000 that is the refill kernel's size, its launches
-    counted from 0."""
+    (outer radius 105 cm, a thick rim: the finish kernel from the source),
+    the macro's source, n rays, dtheta 0.5 over +-45 degrees x phi {0,
+    180} = 362 positions, traced once; the phi-averaged profile peaks
+    within 6 degrees of the axis, as the corpus does.  Then the reference's
+    methodology in full: fresh rays for all 362 positions (46 chunks of 8
+    x n rays, one finish launch from the source each, no eager or waves
+    loop), within 5 sigma per position of the trace-once fractions, its
+    wall time and launches.  Then a thin-shell scene through the simulate
+    engine, 16 positions in one chunk of 16 x n rays: at n = 100,000 that
+    is the refill kernel's size, its launches counted from 0."""
     import numpy as np
 
     from altair_tpu_torch import (SCENE_INSPHERE, SCENE_OPTIMIZE, SOURCE_DEMO,
@@ -1075,18 +1087,37 @@ def phase_insphere(device, n=N_HEADLINE, seed=1200):
            "peak_fraction": float(prof.max()),
            "total_fraction": float(once.fractions.sum()), "file": path}
 
+    # the full retrace sweep, warm (its first run builds nothing new: the
+    # trace-once sweep launched the same kernel)
     re = sweep_insphere_detector(SCENE_INSPHERE, SOURCE_DEMO, device=device,
-                                 n_rays=n, dtheta=1.0, theta_max=3.5,
-                                 seed=seed + 1, retrace=True, save_path=None)
-    check(len(re.fractions) == 16, f"insphere retrace: {len(re.fractions)}")
-    ref = np.array([once.fractions[(once.thetas == t) & (once.phis == p)][0]
-                    for t, p in zip(re.thetas, re.phis)])
-    z = _sigma_apart(re.fractions, ref, n, n)
+                                 n_rays=n, seed=seed + 1, retrace=True,
+                                 save_path=None)
+    profiling.clear()
+    with profiling.tracing():
+        re = sweep_insphere_detector(SCENE_INSPHERE, SOURCE_DEMO,
+                                     device=device, n_rays=n, seed=seed + 1,
+                                     retrace=True, save_path=None)
+    rec = profiling.records()
+    profiling.clear()
+    check(len(re.fractions) == 362, f"insphere retrace: {len(re.fractions)}")
+    finishes = [s["attrs"] for s in rec["spans"] if s["name"] == "kernel.finish"]
+    loops = [s["name"] for s in rec["spans"] if s["name"].startswith("loop.")]
+    check(len(finishes) == 46
+          and {(f["n"], f["entry"]) for f in finishes} == {(8 * n, "source")},
+          f"insphere retrace: finish launches {finishes[:3]}...")
+    check(not loops, f"insphere retrace: loops {sorted(set(loops))}")
+    z = _sigma_apart(re.fractions, once.fractions, n, n)
     check(z.max() < 5, f"insphere retrace: {z.max()} sigma from trace-once")
-    out["retrace"] = {"positions": 16, "wall_s": re.wall_time_s,
-                      "per_position_s": re.wall_time_s / 16,
+    out["retrace"] = {"positions": 362, "wall_s": re.wall_time_s,
+                      "per_position_s": re.wall_time_s / 362,
+                      "finish_launches": rec["totals"].get(
+                          "kernel.finish.launches", 0),
+                      "finish_rays": rec["totals"].get("kernel.finish.rays",
+                                                       0),
+                      "disk_tests": rec["totals"].get("insphere.disk_tests",
+                                                      0),
                       "max_sigma": float(z.max()),
-                      "fractions": re.fractions.tolist()}
+                      "total_fraction": float(re.fractions.sum())}
 
     thin = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES)
     kw = dict(device=device, n_rays=n, dtheta=1.0, theta_max=3.5,
@@ -1694,7 +1725,9 @@ def main() -> int:
                        mesh_out["trace_simulate"]["launches"]["refill"]},
         "finish": {"headline_simulate": n_fin,
                    "scale_auto": scale["auto"]["launches"]["finish"],
-                   "scale_simulate": scale["simulate"]["launches"]["finish"]},
+                   "scale_simulate": scale["simulate"]["launches"]["finish"],
+                   "insphere_retrace_source":
+                       insphere["retrace"]["finish_launches"]},
     }
     for name, by_path in path_launches.items():
         for path, count in by_path.items():
@@ -1737,13 +1770,24 @@ def main() -> int:
     # launches: the sum over the main paths' runs, each counted from 0;
     # no single PyTorch call computes any kernel's function, so
     # library_ms is null
+    # and one more line for the finish kernel's launch from the source
+    # (the in-sphere retrace sweep's chunk), its bound that launch's
+    # longest lane's chain
+    f_src = finish_timing["rows"][-1]
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": trace_cuda.KERNELS[name][0],
          "replaces": trace_cuda.KERNELS[name][1], "launches": n_launch,
          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": bounds[name]["bound_ms"],
          "bound_by": bounds[name]["bound_by"], "library_ms": None}
-        for name, (n_launch, err, ms, plain_ms) in rows.items()]})
+        for name, (n_launch, err, ms, plain_ms) in rows.items()] + [
+        {"name": "finish", "entry": "source", "route": "cuda",
+         "source": trace_cuda.KERNELS["finish"][0], "replaces": None,
+         "launches": insphere["retrace"]["finish_launches"],
+         "max_abs_err": f_src["max_abs_err_cm"], "ms": f_src["kernel_ms"],
+         "plain_ms": f_src["plain_ms"], "bound_ms": f_src["bound_ms"],
+         "bound_by": "operations", "longest_lane_steps":
+             f_src["longest_lane_steps"], "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

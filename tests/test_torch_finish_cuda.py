@@ -30,18 +30,25 @@ def totals(name: str) -> int:
     return profiling.records()["totals"].get(name, 0)
 
 
+@pytest.mark.parametrize("entry", ["state", "source"])
 @pytest.mark.parametrize("exact_rim", [True, False])
 @pytest.mark.parametrize("model", list(SurfaceModel))
-def test_kernel_matches_plain(cuda, model, exact_rim):
+def test_kernel_matches_plain(cuda, model, exact_rim, entry):
     """Built with -fmad=false, the kernel does the plain version's float
     operations with the same CUDA math library: on a state with lanes in
-    the gap, interior, dead and (at a 256-step cap) suspended, status and
-    bounce count are equal on every lane, positions and directions within
-    1e-3 cm (NaN where both are NaN)."""
-    call = profile_finish.mixed_entry_state(cuda, model)
+    the gap, interior, dead and (at a 256-step cap) suspended, and on the
+    thick-rim route's entry (20,000 source rays of the 105 cm shell, the
+    same cap), status and bounce count are equal on every lane, positions
+    and directions within 1e-3 cm (NaN where both are NaN)."""
+    if entry == "state":
+        call = profile_finish.mixed_entry_state(cuda, model)
+        kinds = profile_finish.lane_kinds(call["state"])
+        assert min(kinds.values()) > 0, kinds
+    else:
+        call = profile_finish.source_entry_call(cuda, model, n=20_000,
+                                                max_iters=256)
+        assert profile_finish.lane_kinds(call["state"])["interior"] == 20_000
     call["exact_rim"] = exact_rim
-    kinds = profile_finish.lane_kinds(call["state"])
-    assert min(kinds.values()) > 0, kinds
     n = call["state"][3].shape[0]
     launches, rays = totals("kernel.finish.launches"), totals(
         "kernel.finish.rays")
@@ -79,4 +86,28 @@ def test_main_paths_launch_finish(cuda, n, finishes):
     profiling.clear()
     assert [s["attrs"]["exact_rim"] for s in spans
             if s["name"] == "kernel.finish"] == finishes
+    assert not [s for s in spans if s["name"] in ("loop.eager", "loop.waves")]
+    assert {s["attrs"]["entry"] for s in spans
+            if s["name"] == "kernel.finish"} == {"state"}
+
+
+def test_thick_rim_launches_finish_from_the_source(cuda):
+    """A thick rim (the in-sphere sweep's 105 cm shell) runs the route
+    ``finish``: one finish launch of the whole batch from the source, exact
+    rim, and no eager or waves loop; every ray finished."""
+    from altair_tpu_torch import SCENE_INSPHERE, SOURCE_DEMO
+
+    profiling.clear()
+    with profiling.tracing():
+        res, ovf = trace_rays_auto(torch.Generator().manual_seed(6),
+                                   SCENE_INSPHERE, SOURCE_DEMO, 200_000,
+                                   TraceConfig(), device=cuda)
+    assert int(ovf) == 0 and not bool((res.status == 0).any())
+    spans = profiling.records()["spans"]
+    profiling.clear()
+    assert [s["attrs"]["route"] for s in spans if s["name"] == "trace"] == [
+        "finish"]
+    assert [(s["attrs"]["n"], s["attrs"]["exact_rim"], s["attrs"]["entry"])
+            for s in spans if s["name"] == "kernel.finish"] == [
+        (200_000, True, "source")]
     assert not [s for s in spans if s["name"] in ("loop.eager", "loop.waves")]

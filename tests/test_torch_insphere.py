@@ -159,8 +159,11 @@ def test_fmt_and_dialect_match_jax(tmp_path):
     assert tr.fractions.sum() > 0 and tr.n_rays == 3000
 
 
-# the corpus scene (thick rim: the in-loop exact-rim trace in both
-# packages), shortened so that the CPU loop stays cheap
+# the corpus scene, shortened so that the CPU loop stays cheap: at
+# reflectance 0.98 its 105 cm rim admits the deferred post-pass in both
+# packages (the port's direct sampler and hybrid continuation); at the
+# macro's reflectance 1 it is a thick rim, whose route from the source is
+# held to the JAX package in tests/test_torch_finish_source.py
 CORPUS_SCENE = SCENE_INSPHERE.with_(reflectance=0.98, max_bounces=768)
 
 

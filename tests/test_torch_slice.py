@@ -159,8 +159,10 @@ def test_overflow_reaches_rim_total(monkeypatch, where):
 @pytest.mark.parametrize("engine", ["auto", "simulate"])
 def test_thick_rim_matches_jax(engine):
     """A thick rim (no deferred post-pass) runs the in-loop exact-rim
-    trace in both packages, whatever the engine: exit fraction and map
-    total within 4 sigma."""
+    physics in both packages, whatever the engine: the port from the
+    source in one finish call (``trace_rays_finish``, its plain version
+    here), the JAX package in its in-loop ``trace_rays``.  Exit fraction
+    and map total within 4 sigma."""
     scene = SCENE.with_(outer_radius=110.0)
     assert trace_mod.rim_deferred_capacity_shift(convert.scene(scene)) is None
     _assert_slice_matches_jax(engine, 5, scene, 8192)
