@@ -5,8 +5,11 @@ detector positions at once.  The production scorer ("mxu" in the JAX
 package) writes the disk test as a quadratic form in the ray's Plucker
 coordinates, so a chunk of positions costs one ``[N, 21] x [21, P]``
 float32 matrix product plus a ``[N, 3] x [3, P]`` parallel guard; "exact"
-keeps the direct per-pair plane/disk arithmetic.  Positions are scored in
-chunks to bound the ``[N, P_chunk]`` working set.
+keeps the direct per-pair plane/disk arithmetic.  On a CUDA device the
+Plucker test runs in one hand-written kernel (``csrc/score.cu``, wrapper
+``plucker_counts``) that keeps every pair in registers; on the CPU, and for
+"exact", positions are scored in chunks to bound the ``[N, P_chunk]``
+working set.
 
 Retrace: fresh rays per position (``fluxmap_retrace``), or each cell drawn
 from its binomial law around one shared trace's hit probabilities
@@ -17,14 +20,17 @@ focal-surface disk of ``integratingSphereDetectorSweep.C`` closes the file.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import math
 import time
 
 import torch
 
 from ..config import DetectorGrid, SphereScene, Source, SurfaceModel, TraceConfig
-from ..io.profiling import host_int, span
+from ..io.profiling import count, host_int, span
+from . import _build
 from .geometry import Vec3, detector_position, line_hits_disk
 from .trace import (EXITED, TraceResult, device_generator, f32, fold_in,
                     split)
@@ -133,10 +139,111 @@ def _hits_block_mxu(Phi, D, rowmask, W, Nrm):
     return hit.sum(dim=0, dtype=torch.int32)
 
 
+def _check_plucker_args(E_rel, D, rowmask, W, Nrm, n_rows):
+    N, P = E_rel.shape[0], W.shape[0]
+    for name, t, shape in (("E_rel", E_rel, (N, 3)), ("D", D, (N, 3)),
+                           ("W", W, (P, 21)), ("Nrm", Nrm, (P, 3))):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, not {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"not {shape}")
+    if rowmask.dtype != torch.bool or tuple(rowmask.shape) != (N,):
+        raise ValueError(f"rowmask must be bool [{N}], not {rowmask.dtype} "
+                         f"{tuple(rowmask.shape)}")
+    if n_rows is not None and (n_rows.dtype != torch.int32
+                               or n_rows.dim() != 0):
+        raise ValueError("n_rows must be a 0-d int32 tensor")
+    tensors = [E_rel, D, rowmask, W, Nrm] + (
+        [] if n_rows is None else [n_rows])
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError("the scorer's operands must be contiguous")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("the scorer's operands must share one device")
+    if P < 1:
+        raise ValueError("no positions to score")
+
+
+def score_entry(lib: ctypes.CDLL):
+    """The C entry ``altair_score`` of a build of ``csrc/score.cu``."""
+    fn = lib.altair_score
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _score_fn():
+    return score_entry(_build.load("score"))
+
+
+def launch_score(fn, E_rel, D, rowmask, W, Nrm, n_rows):
+    """One launch of the entry ``fn`` on checked CUDA operands with at
+    least one row; returns the ``[P]`` int32 counts."""
+    counts = torch.zeros((W.shape[0],), dtype=torch.int32,
+                         device=E_rel.device)
+    err = fn(E_rel.data_ptr(), D.data_ptr(), rowmask.data_ptr(),
+             None if n_rows is None else n_rows.data_ptr(), E_rel.shape[0],
+             W.data_ptr(), Nrm.data_ptr(), W.shape[0], counts.data_ptr(),
+             torch.cuda.current_stream(E_rel.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"score kernel launch failed: CUDA error {err}")
+    return counts
+
+
+def _plucker_counts_cuda(E_rel, D, rowmask, W, Nrm, n_rows):
+    N, P = E_rel.shape[0], W.shape[0]
+    if not N:
+        return torch.zeros((P,), dtype=torch.int32, device=E_rel.device)
+    fn = _score_fn()
+    with (span("kernel.score", n=N, positions=P) as sp,
+          torch.cuda.device(E_rel.device)):
+        counts = launch_score(fn, E_rel, D, rowmask, W, Nrm, n_rows)
+    count("kernel.score.launches")
+    if sp.on:
+        rows = N if n_rows is None else n_rows.to(torch.int64)
+        count("kernel.score.pairs", rows * P)
+    return counts
+
+
+def plucker_counts(E_rel, D, rowmask, W, Nrm, n_rows=None,
+                   pos_chunk: int = 1080):
+    """``[P]`` int32 hit counts of the Plucker pair test
+    (``_hits_block_mxu``) of every row against every position.
+
+    ``E_rel``: ``[N, 3]`` exit points relative to the port anchor and
+    ``D``: ``[N, 3]`` directions, float32; ``rowmask``: ``[N]`` bool;
+    ``W``: ``[P, 21]`` weights of ``_plucker_weights`` and ``Nrm``: ``[P,
+    3]`` normals, float32.  A row counts where its index is below
+    ``n_rows`` (a 0-d int32 tensor on the same device, read there; None:
+    every row) and ``rowmask`` holds.  All contiguous, on one device.
+
+    CUDA tensors launch the kernel of ``csrc/score.cu`` (the counter
+    ``kernel.score.launches``; the span ``kernel.score``; while tracing
+    the counter ``kernel.score.pairs``, the launch's rows times its
+    positions) or raise; CPU tensors run ``_hits_block_mxu`` over chunks
+    of ``pos_chunk`` positions."""
+    _check_plucker_args(E_rel, D, rowmask, W, Nrm, n_rows)
+    if E_rel.device.type == "cuda":
+        return _plucker_counts_cuda(E_rel, D, rowmask, W, Nrm, n_rows)
+    if E_rel.device.type != "cpu":
+        raise ValueError(f"no scorer for device {E_rel.device}")
+    if n_rows is not None:
+        rowmask = rowmask & (torch.arange(E_rel.shape[0]) < n_rows)
+    Phi = _plucker_features(E_rel, D)
+    return torch.cat([_hits_block_mxu(Phi, D, rowmask, W[i:i + pos_chunk],
+                                      Nrm[i:i + pos_chunk])
+                      for i in range(0, W.shape[0], pos_chunk)])
+
+
 def _score_grid(E, D, rowmask, grid: DetectorGrid, exit_port_z, pos_chunk,
-                method: str = "mxu"):
-    """Chunked [rays x positions] scoring core of the trace-once scorers;
-    returns ``[n_theta, n_phi]`` int32 counts."""
+                method: str = "mxu", n_rows=None):
+    """[rays x positions] scoring core of the trace-once scorers; returns
+    ``[n_theta, n_phi]`` int32 counts.  ``n_rows``: None, or a 0-d int32
+    device count past which no row is scored (the compacting caller's
+    valid rows are a prefix: the kernel then splits only those)."""
     if method not in ("mxu", "exact"):
         raise ValueError(f"unknown scoring method {method!r}")
     _check_matmul_precision()
@@ -145,8 +252,6 @@ def _score_grid(E, D, rowmask, grid: DetectorGrid, exit_port_z, pos_chunk,
     C, Nrm = grid_centers_normals(grid, exit_port_z, dev)
     P = grid.n_positions
     chunk = min(pos_chunk, P)
-    n_chunks = -(-P // chunk)
-    C, Nrm = _pad_positions(C, Nrm, n_chunks * chunk)
     half_w = grid.width / 2.0
 
     if method == "mxu":
@@ -158,16 +263,15 @@ def _score_grid(E, D, rowmask, grid: DetectorGrid, exit_port_z, pos_chunk,
         # anchoring cancellation runs at full precision and the float32
         # features carry the small relative coordinates
         E_rel = (E - anchor.to(E.dtype)).to(torch.float32)
-        Phi = _plucker_features(E_rel, D)
-        counts = [_hits_block_mxu(Phi, D, rowmask, W[i:i + chunk],
-                                  Nrm[i:i + chunk])
-                  for i in range(0, n_chunks * chunk, chunk)]
+        counts = plucker_counts(E_rel.contiguous(), D.contiguous(),
+                                rowmask.contiguous(), W, Nrm.contiguous(),
+                                n_rows, chunk)
     else:
         E = E.to(torch.float32)
-        counts = [_hits_block(E, D, rowmask, C[i:i + chunk],
-                              Nrm[i:i + chunk], half_w)
-                  for i in range(0, n_chunks * chunk, chunk)]
-    return torch.cat(counts)[:P].reshape(grid.n_theta, grid.n_phi)
+        counts = torch.cat([_hits_block(E, D, rowmask, C[i:i + chunk],
+                                        Nrm[i:i + chunk], half_w)
+                            for i in range(0, P, chunk)])
+    return counts.reshape(grid.n_theta, grid.n_phi)
 
 
 def fluxmap_trace_once(result: TraceResult, grid: DetectorGrid,
@@ -205,12 +309,17 @@ def fluxmap_trace_once_compact(result: TraceResult, grid: DetectorGrid,
     as an error at the call site.
 
     The span ``score``, with the rows scored (``exits``: the buffer's
-    ``capacity``), the ``positions`` and the position ``chunks``."""
+    ``capacity``), the ``positions``, the position ``chunks`` and the
+    ``engine``: ``"kernel"`` where the Plucker test runs in the CUDA
+    kernel (one launch; ``pos_chunk`` then bounds nothing), ``"torch"``
+    otherwise."""
     from .compact import nonzero_indices
 
     P = grid.n_positions
+    kernel = method == "mxu" and result.status.device.type == "cuda"
     with span("score", exits=capacity, positions=P,
-              chunks=-(-P // min(pos_chunk, P))):
+              chunks=1 if kernel else -(-P // min(pos_chunk, P)),
+              engine="kernel" if kernel else "torch"):
         mask = result.exited_port_mask(exit_port_z)
         n = mask.shape[0]
         idx = nonzero_indices(mask, capacity, n)
@@ -218,9 +327,11 @@ def fluxmap_trace_once_compact(result: TraceResult, grid: DetectorGrid,
         take = torch.clamp(idx, max=n - 1)
         E = result.last_point.stack()[take]
         D = result.direction.stack()[take]
-        n_overflow = mask.sum(dtype=torch.int32) - valid.sum(dtype=torch.int32)
+        n_valid = valid.sum(dtype=torch.int32)
+        n_overflow = mask.sum(dtype=torch.int32) - n_valid
+        # the valid rows are a prefix: the kernel reads their count
         counts = _score_grid(E, D, valid, grid, exit_port_z, pos_chunk,
-                             method)
+                             method, n_valid)
     return counts, n_overflow
 
 

@@ -47,6 +47,8 @@ KERNELS = {
     "refill": ("altair_tpu_torch/csrc/refill.cu",
                "altair_tpu/core/trace_pallas.py:399"),
     "finish": ("altair_tpu_torch/csrc/finish.cu", None),
+    # the Plucker scorer's kernel; its wrapper is core/score.py's
+    "score": ("altair_tpu_torch/csrc/score.cu", None),
 }
 
 # lanes of one refill unit: a warp's pool and the handoff unit

@@ -31,6 +31,10 @@ Counters the port keeps (names as ``records()`` gives them):
   launches took), always; each launch's size is also the ``n`` of its
   ``kernel.<name>`` span (``kernel.finish`` also says ``exact_rim`` and
   ``entry``: ``source`` or ``state``);
+* ``kernel.score.launches``, always, and ``kernel.score.pairs`` (the
+  launch's rows times its positions, a device count), only while
+  tracing; a launch's rows and positions are also the ``n`` and
+  ``positions`` of its ``kernel.score`` span;
 * ``insphere.disk_tests``: ray-disk pairs the in-sphere sweep tested
   (rays times the disks each was tested against), always;
 * ``lane_steps_issued`` and ``lane_steps_live``: per eager or waves loop,

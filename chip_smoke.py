@@ -7,8 +7,9 @@ the multi-device layer).
 
     python3 chip_smoke.py
 
-Builds the CUDA bounce, refill and finish kernels from altair_tpu_torch/csrc
-(one nvcc each, in parallel), holds each against its plain PyTorch version,
+Builds the CUDA bounce, refill, finish and scorer kernels from
+altair_tpu_torch/csrc (one nvcc each, in parallel), holds each against its
+plain PyTorch version,
 drives the headline job (production scene, SOURCE_OVERNIGHT, 100,000 rays,
 the full 180x90 detector grid) through ``trace_rays_auto`` +
 ``fluxmap_trace_once_compact`` with both engines and through
@@ -20,7 +21,10 @@ kernel is held against its plain version on states with lanes in the
 gap, interior, dead and at the cap, and timed at the main paths' shapes
 (the MIXED_BRDF map's rim continuation, the 4M trace's straggler finish
 and rim continuation, and the in-sphere retrace sweep's chunk of 800,000
-rays from the source) against its longest lane's serial chain.  The
+rays from the source) against its longest lane's serial chain.  The Plucker
+scorer's kernel is timed against its plain version at the binomial map's
+and the trace-once map's shapes, beside the least time of the benchmark's
+35 flops a pair, its counts held to the JAX package's tolerance.  The
 refill kernel (warp-owned lane pools) is held against its plain version
 at every size the main paths launch it with (2^20, 4,194,304 and the
 retrace chunk's), for the four laws with and without the handoff, and
@@ -114,7 +118,7 @@ def launches() -> dict:
 
     tot = profiling.records()["totals"]
     return {k: tot.get(f"kernel.{k}.launches", 0)
-            for k in ("bounce", "refill", "finish")}
+            for k in ("bounce", "refill", "finish", "score")}
 
 
 def launch_sizes(kernel: str) -> list:
@@ -238,6 +242,27 @@ def phase_finish_timing(device):
               f"finish {name}: kernel differs from plain ({row})")
         rows.append(row)
     return {"phase": "finish_timing", "rows": rows}
+
+
+def phase_score(device, seed=1500):
+    """The Plucker scorer's kernel at the two map paths' shapes
+    (``profile_score.SHAPES``: the binomial map's ~2.7M valid exits, the
+    MIXED_BRDF trace-once map's ~46k of a 100,000-row buffer, each against
+    the 180x90 grid): its time and the plain version's (CUDA events), the
+    least time at the benchmark's 35 flops a pair, and the counts of the
+    two, held to the JAX package's scorer tolerance (at most 3 flips a
+    position; tests/test_torch_score_cuda.py bounds each flip by the
+    float64 test)."""
+    from altair_tpu_torch import profile_score
+
+    rows = {}
+    for shape in profile_score.SHAPES:
+        row = profile_score.time_call(
+            profile_score.scorer_call(device, shape, seed))
+        check(row["max_count_diff"] <= 3,
+              f"score {shape}: counts differ by {row['max_count_diff']}")
+        rows[shape] = row
+    return {"phase": "score", **rows}
 
 
 def _hits_per_ray(res, grid, exit_port_z):
@@ -738,6 +763,7 @@ def phase_retrace_binomial(device, n_per_pos=50_000, oversample=128,
     from altair_tpu_torch.core import score
     from altair_tpu_torch.core.trace_cuda import _slice
     from altair_tpu_torch.core.trace_direct import trace_rays_direct
+    from altair_tpu_torch.io import profiling
 
     grid = DetectorGrid()
     scene = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES)
@@ -750,6 +776,7 @@ def phase_retrace_binomial(device, n_per_pos=50_000, oversample=128,
             grid, n_per_pos, oversample=oversample, device=device,
             stats=stats).cpu()
 
+    profiling.clear()
     run(0)
     times, stages = [], []
     for i in range(1, repeats + 1):
@@ -758,6 +785,9 @@ def phase_retrace_binomial(device, n_per_pos=50_000, oversample=128,
         t0 = time.perf_counter()
         cells = run(i, stages[-1])
         times.append(time.perf_counter() - t0)
+    kernels = launches()
+    check(kernels["score"] == repeats + 1,
+          f"binomial: score launches {kernels}")
     best = min(range(repeats), key=times.__getitem__)
     ovf = [st.pop("compaction_overflow") for st in stages]
     check(not any(ovf), f"binomial: compaction overflow {ovf}")
@@ -802,7 +832,7 @@ def phase_retrace_binomial(device, n_per_pos=50_000, oversample=128,
                               // score.binomial_pos_chunk(cap)),
             "grid": [180, 90], "best_s": min(times), "times_s": times,
             "best_run_stages_s": split_s, "stages_s": stages,
-            "total_fraction": frac,
+            "total_fraction": frac, "launches": kernels,
             "trace_once_fraction": frac_ref, "sigma": sigma,
             "max_cell": int(cells.max()), "compaction_overflow": ovf}, cells
 
@@ -1656,8 +1686,10 @@ def main() -> int:
     sim = phase_headline(device, "simulate", seed=args.seed + 1000)
     n_sim = launches()["bounce"]
     n_fin = launches()["finish"]
+    n_score = launches()["score"]
     sim["bounce_launches"] = n_sim
     sim["finish_launches"] = n_fin
+    sim["score_launches"] = n_score
     sim["bounce_rays"] = profiling.records()["totals"].get(
         "kernel.bounce.rays", 0)
     emit(sim)
@@ -1679,6 +1711,8 @@ def main() -> int:
     emit(refill_timing)
     finish_timing = phase_finish_timing(device)
     emit(finish_timing)
+    score_timing = phase_score(device)
+    emit(score_timing)
     emit(phase_simulate_e2e(device))
 
     # the retrace flux-map path: Sobol draws, the binomial map at bench
@@ -1728,6 +1762,10 @@ def main() -> int:
                    "scale_simulate": scale["simulate"]["launches"]["finish"],
                    "insphere_retrace_source":
                        insphere["retrace"]["finish_launches"]},
+        "score": {"headline_simulate": n_score,
+                  "retrace_binomial": binom["launches"]["score"],
+                  "mesh_fluxmap_simulate":
+                      mesh_out["fluxmap_simulate"]["launches"]["score"]},
     }
     for name, by_path in path_launches.items():
         for path, count in by_path.items():
@@ -1751,12 +1789,19 @@ def main() -> int:
     bounds["finish"] = {"bound_ms": f_main["bound_ms"],
                         "bound_by": "operations", "binds": "serial chain"}
     finish_err = max(_errors(finish_plain_rows) + _errors(finish_timing))
+    # the scorer's row is the binomial map's shape; its bound the
+    # benchmark's 35 flops a pair at the float32 peak; its error the
+    # largest count difference a position
+    s_main = score_timing["binomial"]
+    bounds["score"] = {"bound_ms": s_main["bound_ms"],
+                       "bound_by": "operations", "binds": "float32 FMA"}
     emit({"phase": "bounds", "card": crd, **bounds,
           "share": {"bounce": bounds["bounce"]["bound_ms"]
                     / timing["kernel_ms"],
                     "refill": bounds["refill"]["bound_ms"]
                     / r_main["refill_ms"],
-                    "finish": f_main["bound_ms"] / f_main["kernel_ms"]}})
+                    "finish": f_main["bound_ms"] / f_main["kernel_ms"],
+                    "score": s_main["bound_ms"] / s_main["kernel_ms"]}})
     rows = {
         "bounce": (sum(path_launches["bounce"].values()), bounce_err,
                    timing["kernel_ms"], timing["plain_ms"]),
@@ -1764,6 +1809,10 @@ def main() -> int:
                    r_main["refill_ms"], r_main["plain_ms"]),
         "finish": (sum(path_launches["finish"].values()), finish_err,
                    f_main["kernel_ms"], f_main["plain_ms"]),
+        "score": (sum(path_launches["score"].values()),
+                  max(r["max_count_diff"] for k, r in score_timing.items()
+                      if k != "phase"),
+                  s_main["kernel_ms"], s_main["plain_ms"]),
     }
     emit({"phase": "launches_by_path", **path_launches})
     print(smi)
@@ -1772,7 +1821,8 @@ def main() -> int:
     # library_ms is null
     # and one more line for the finish kernel's launch from the source
     # (the in-sphere retrace sweep's chunk), its bound that launch's
-    # longest lane's chain
+    # longest lane's chain, and one for the scorer at the trace-once
+    # map's shape (its launches: the simulate headline's maps)
     f_src = finish_timing["rows"][-1]
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": trace_cuda.KERNELS[name][0],
@@ -1787,7 +1837,15 @@ def main() -> int:
          "max_abs_err": f_src["max_abs_err_cm"], "ms": f_src["kernel_ms"],
          "plain_ms": f_src["plain_ms"], "bound_ms": f_src["bound_ms"],
          "bound_by": "operations", "longest_lane_steps":
-             f_src["longest_lane_steps"], "library_ms": None}]})
+             f_src["longest_lane_steps"], "library_ms": None},
+        {"name": "score", "shape": "map100k", "route": "cuda",
+         "source": trace_cuda.KERNELS["score"][0], "replaces": None,
+         "launches": n_score, "max_abs_err":
+             score_timing["map100k"]["max_count_diff"],
+         "ms": score_timing["map100k"]["kernel_ms"],
+         "plain_ms": score_timing["map100k"]["plain_ms"],
+         "bound_ms": score_timing["map100k"]["bound_ms"],
+         "bound_by": "operations", "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

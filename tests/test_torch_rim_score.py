@@ -65,6 +65,85 @@ def test_compact_scorer_and_capacity(shared):
     assert int(ovf) == 100
 
 
+@pytest.mark.parametrize("pos_chunk", [1, 7, 64, 1349, 5000])
+def test_plain_counts_do_not_depend_on_pos_chunk(shared, pos_chunk):
+    """On the CPU ``pos_chunk`` only bounds the plain path's working set:
+    every chunking of the 1,350 positions (a last chunk of 1, of 6, one
+    chunk of all) gives the counts of the default 1,080."""
+    _, tres = shared
+    grid = convert.grid(DetectorGrid(n_theta=45, n_phi=30))
+    ref = tscore.fluxmap_trace_once(tres, grid)
+    assert int(ref.sum()) > 1000
+    assert torch.equal(tscore.fluxmap_trace_once(tres, grid,
+                                                 pos_chunk=pos_chunk), ref)
+
+
+def _plucker_operands(n=64, p=10):
+    g = torch.Generator().manual_seed(0)
+    return dict(E_rel=torch.randn(n, 3, generator=g),
+                D=torch.randn(n, 3, generator=g),
+                rowmask=torch.ones(n, dtype=torch.bool),
+                W=torch.randn(p, 21, generator=g),
+                Nrm=torch.randn(p, 3, generator=g))
+
+
+def _score_launches():
+    from altair_tpu_torch.io import profiling
+
+    return profiling.records()["totals"].get("kernel.score.launches", 0)
+
+
+@pytest.mark.parametrize("bad,error", [
+    (dict(E_rel=torch.zeros(64, 3, dtype=torch.float64)), TypeError),
+    (dict(W=torch.zeros(10, 20)), ValueError),
+    (dict(Nrm=torch.zeros(11, 3)), ValueError),
+    (dict(D=torch.zeros(3, 64).T), ValueError),
+    (dict(rowmask=torch.ones(64, dtype=torch.int32)), ValueError),
+    (dict(rowmask=torch.ones(63, dtype=torch.bool)), ValueError),
+    (dict(n_rows=torch.tensor(5)), ValueError),
+    (dict(n_rows=torch.tensor([5], dtype=torch.int32)), ValueError),
+    (dict(W=torch.zeros(10, 21, device="meta")), ValueError),
+    (dict(W=torch.zeros(0, 21), Nrm=torch.zeros(0, 3)), ValueError),
+])
+def test_plucker_counts_checks_its_arguments(bad, error):
+    """The wrapper refuses a wrong dtype, shape, contiguity or device
+    before it dispatches, so the kernel never sees them."""
+    before = _score_launches()
+    with pytest.raises(error):
+        tscore.plucker_counts(**{**_plucker_operands(), **bad})
+    assert _score_launches() == before
+
+
+def test_cpu_tensors_take_the_plain_path(shared, monkeypatch):
+    """CPU tensors run ``_hits_block_mxu``: the kernel's wrapper is never
+    called, ``kernel.score.launches`` stays 0 and the ``score`` span says
+    ``engine="torch"``; a row count drops the rows at and past it."""
+    from altair_tpu_torch.io import profiling
+
+    def no_kernel(*a, **k):
+        raise AssertionError("the CPU path launched the kernel")
+
+    monkeypatch.setattr(tscore, "_plucker_counts_cuda", no_kernel)
+    _, tres = shared
+    grid = convert.grid(DetectorGrid(n_theta=12, n_phi=6))
+    profiling.clear()
+    with profiling.tracing():
+        counts, ovf = tscore.fluxmap_trace_once_compact(tres, grid, N)
+    rec = profiling.records()
+    assert int(ovf) == 0 and int(counts.sum()) > 100
+    assert rec["totals"].get("kernel.score.launches", 0) == 0
+    (sp,) = [s for s in rec["spans"] if s["name"] == "score"]
+    assert sp["attrs"]["engine"] == "torch"
+    assert not [s for s in rec["spans"] if s["name"] == "kernel.score"]
+    ops = _plucker_operands()
+    full = tscore.plucker_counts(**ops)
+    cut = tscore.plucker_counts(**ops, n_rows=torch.tensor(
+        40, dtype=torch.int32))
+    ops["rowmask"][40:] = False
+    assert torch.equal(cut, tscore.plucker_counts(**ops))
+    assert int(full.sum()) > int(cut.sum()) > 0
+
+
 def test_grid_centers_normals_match():
     grid = DetectorGrid(n_theta=18, n_phi=9)
     jc, jn = jscore.grid_centers_normals(grid)
