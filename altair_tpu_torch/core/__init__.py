@@ -8,7 +8,7 @@ from .trace import (  # noqa: F401
     TraceResult,
     exit_count,
     trace_rays,
-    trace_rays_rim_deferred,
 )
+from .route import trace_rays_auto, trace_rays_rim_deferred  # noqa: F401
 from .trace_direct import direct_applicable, trace_rays_direct  # noqa: F401
-from .trace_waves import trace_rays_auto, trace_rays_waves, waves_safe  # noqa: F401
+from .trace_waves import trace_rays_waves, waves_safe  # noqa: F401

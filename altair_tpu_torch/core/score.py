@@ -32,6 +32,7 @@ from ..config import DetectorGrid, SphereScene, Source, SurfaceModel, TraceConfi
 from ..io.profiling import count, host_int, span
 from . import _build
 from .geometry import Vec3, detector_position, line_hits_disk
+from .route import trace_rays_auto
 from .trace import (EXITED, TraceResult, device_generator, f32, fold_in,
                     split)
 
@@ -385,8 +386,6 @@ def fluxmap_retrace_counts(gen, scene, source, grid, n_per_pos,
     """``fluxmap_retrace`` without its check: ``(counts, overflow)``, the
     map and the rays its traces left unfinished (a 0-d int32 tensor), for
     a caller that sums the overflow over ranks before it tests it."""
-    from .trace_waves import trace_rays_auto
-
     if pos_chunk is None:
         pos_chunk = max(1, min(32, (1 << 22) // max(n_per_pos, 1)))
     if centers_normals is not None:
@@ -423,19 +422,22 @@ def binomial_pos_chunk(capacity: int) -> int:
 
 
 def _lap_clock(stats: dict | None, device):
-    """``lap(name)``: when ``stats`` is a dict, wait for ``device`` and
+    """``lap(name=None)``: when ``stats`` is a dict, wait for ``device``,
     store the wall seconds since the previous lap (or since this call)
-    under ``name``; otherwise do nothing."""
+    under ``name`` when one is given, and return the host clock
+    (``time.perf_counter``); otherwise do nothing and return None."""
     last = [time.perf_counter()]
 
-    def lap(name):
+    def lap(name=None):
         if stats is None:
-            return
+            return None
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize(device)
         now = time.perf_counter()
-        stats[name] = now - last[0]
+        if name is not None:
+            stats[name] = now - last[0]
         last[0] = now
+        return now
 
     return lap
 
@@ -478,8 +480,6 @@ def fluxmap_retrace_binomial(
     The span ``map.binomial``; its stages are the spans ``trace``,
     ``score`` and ``score.draw``.  A span never syncs: the ``stats`` laps
     keep their own synced clock."""
-    from .trace_waves import trace_rays_auto
-
     if oversample < 2:
         raise ValueError("oversample must be >= 2: the shared "
                          "sample must exceed the per-position count")

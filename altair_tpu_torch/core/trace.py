@@ -1,5 +1,6 @@
-"""The bounce step, the eager bounce loop and the deferred-rim post-pass —
-the PyTorch counterpart of ``altair_tpu/core/trace.py``.
+"""The ray statuses, the keys, the bounce step and the eager bounce loop —
+the PyTorch counterpart of ``altair_tpu/core/trace.py`` (whose deferred-rim
+post-pass is the port's ``core/route.py``).
 
 Random numbers: where the JAX package takes a key, the port takes a CPU
 ``torch.Generator``.  JAX's key splits become ``split``: sub-generators
@@ -35,7 +36,10 @@ class TraceResult(NamedTuple):
 
     status: torch.Tensor     # [N] int32, one of the codes above
     last_point: Vec3         # ARay::GetLastPoint
-    seg_start: Vec3          # second-to-last point (segment start)
+    # start of the last segment: an exit starts at the port-cap crossing on
+    # the refill path and at the last wall point (or the source) elsewhere,
+    # both on the exit line; any other ray at its second-to-last point
+    seg_start: Vec3
     direction: Vec3          # final unit direction
     n_bounces: torch.Tensor  # [N] int32 — wall interactions before death
     history: torch.Tensor | None = None      # [K, N, 3] optional path points
@@ -270,6 +274,27 @@ def _while_trace(step_fn, carry, max_iters: int, block: int):
     return carry
 
 
+def trace_eager_from_state(gen: torch.Generator, scene: SphereScene, state,
+                           cfg: TraceConfig, device, block: int | None = None,
+                           wrap_step=None) -> TraceResult:
+    """Run the eager bounce loop from the bounce-step carry ``state`` of
+    mid-flight lanes until every lane is dead or ``scene.max_bounces``
+    steps, with the step's draws keyed by ``gen`` and the alive check once
+    per ``block`` steps (default ``cfg.block_iters``); lanes still running
+    at the cap are suspended (``ray->Suspend()``).  ``wrap_step(step)``,
+    when given, returns the step the loop runs in place of ``step``."""
+    max_iters = int(scene.max_bounces)
+    step = make_bounce_step(gen, scene, state[3].shape[0], cfg, device)
+    if wrap_step is not None:
+        step = wrap_step(step)
+    block = max(1, min(int(cfg.block_iters if block is None else block),
+                       max_iters))
+    pos, direction, prev, status, bounces, _ = _while_trace(
+        step, state, max_iters, block)
+    return TraceResult(torch.where(status == RUNNING, SUSPENDED, status), pos,
+                       prev, direction, bounces)
+
+
 def trace_rays(
     gen: torch.Generator,
     scene: SphereScene,
@@ -292,55 +317,38 @@ def trace_rays(
     pos, direction = _source_rays(source, n_rays, dtype, device)
     zeros = torch.zeros((n_rays,), dtype=torch.int32, device=device)
     max_iters = int(scene.max_bounces)
-    step = make_bounce_step(gen, scene, n_rays, cfg, device)
-    block = max(1, min(int(cfg.block_iters), max_iters))
     init = (pos, direction, pos, zeros, zeros,
             torch.zeros((n_rays,), dtype=torch.bool, device=device))
 
     keep_hist = int(cfg.keep_history)
-    hist = hlen = None
+    hist = hlen = wrap = None
     if keep_hist:
         hist = torch.zeros((keep_hist, n_rays, 3), dtype=dtype, device=device)
         hist[0] = pos.stack()
         hlen = torch.ones((n_rays,), dtype=torch.int64, device=device)
         lanes = torch.arange(n_rays, device=device)
-        bare_step = step
 
-        def step(it, carry):
-            nonlocal hlen
-            rec = carry[3] == RUNNING
-            carry = bare_step(it, carry)
-            if it < max_iters:
-                # one masked write a step: running lanes record their new
-                # point at their own slot, the others rewrite what is there
-                slot = torch.clamp(hlen, max=keep_hist - 1)
-                hist[slot, lanes] = torch.where(
-                    rec[:, None], carry[0].stack(), hist[slot, lanes])
-                hlen = torch.where(rec, torch.clamp(hlen + 1, max=keep_hist),
-                                   hlen)
-            return carry
+        def wrap(bare_step):
+            def step(it, carry):
+                nonlocal hlen
+                rec = carry[3] == RUNNING
+                carry = bare_step(it, carry)
+                if it < max_iters:
+                    # one masked write a step: running lanes record their
+                    # new point at their own slot, the others rewrite what
+                    # is there
+                    slot = torch.clamp(hlen, max=keep_hist - 1)
+                    hist[slot, lanes] = torch.where(
+                        rec[:, None], carry[0].stack(), hist[slot, lanes])
+                    hlen = torch.where(
+                        rec, torch.clamp(hlen + 1, max=keep_hist), hlen)
+                return carry
+            return step
 
-    pos, direction, prev, status, bounces, _ = _while_trace(
-        step, init, max_iters, block)
-    # rays still running after the cap are suspended (ray->Suspend())
-    status = torch.where(status == RUNNING, SUSPENDED, status)
-    return TraceResult(status, pos, prev, direction, bounces, hist,
-                       None if hlen is None else _i32(hlen))
-
-
-# deferred-rim continuations at least this wide wave-compact their tail
-# (``trace_waves_from_state``) when there is no closed-form finish and the
-# kernels do not take the scene
-_WAVES_CONTINUATION_MIN = 65536
-# the wave schedule of that continuation, as in the JAX package
-# (RIM_CONT_FIRST_WAVE = None: the first wave is RIM_CONT_WAVE_ITERS long)
-RIM_CONT_WAVE_ITERS = 96
-RIM_CONT_SHRINK = 4
-RIM_CONT_FIRST_WAVE: int | None = None
-# hybrid-continuation tails at least this wide recurse into the hybrid
-# where the kernels do not take the scene (module constant so tests can
-# lower it)
-HYBRID_RECURSE_MIN = 32768
+    res = trace_eager_from_state(gen, scene, init, cfg, device,
+                                 wrap_step=wrap)
+    return res._replace(history=hist,
+                        history_len=None if hlen is None else _i32(hlen))
 
 
 def rim_deferred_capacity_shift(scene: SphereScene) -> int | None:
@@ -425,250 +433,6 @@ def _compact_gather(mask, vecs, ints, capacity: int, n: int,
     base = 3 * len(vecs)
     out_ints = [_i32(rows[:, base + j]) for j in range(len(ints))]
     return idx, valid, out_vecs, out_ints, n_dropped
-
-
-def _rim_continuation_hybrid(gen, scene, carry, cfg, radius, r_out, cos_tm,
-                             INF, device, depth: int = 0):
-    """Finish the deferred-rim continuation buffer: a 16-iteration exact-rim
-    prefix, a closed-form finish of the interior survivors, a re-clip of
-    their sampled escapes, and an 8x-smaller tail.  Where the kernels take
-    the scene the tail is one launch of the finish kernel; elsewhere it is
-    the in-loop trace, recursing into this hybrid while it is large (the
-    JAX package's schedule).
-
-    Returns ``(pos, dir, prev, status, bounces, n_overflow)``."""
-    from .geometry import cone_crossing_t, cone_face_normal
-    from .trace_cuda import finish_from_state, kernel_applicable
-    from .trace_direct import trace_direct_from_state
-
-    dtype = cfg.dtype
-    m = carry[0].x.shape[0]
-    max_iters = int(scene.max_bounces)
-    k_pre, k_fin, k_rim2, k_tail = split(gen, 4)
-
-    step = make_bounce_step(k_pre, scene, m, cfg, device)
-    for it in range(min(16, max_iters)):
-        carry = step(it, carry)
-    pos, direction, prev, status, bounces, in_gap = carry
-
-    # ---- closed-form finish for interior survivors ----------------------
-    run_int = (status == RUNNING) & ~in_gap
-    fin = trace_direct_from_state(k_fin, scene, pos, direction, bounces, cfg)
-    status_o = torch.where(run_int, fin.status, status)
-    pos_o = Vec3.where(run_int, fin.last_point, pos)
-    prev_o = Vec3.where(run_int, fin.seg_start, prev)
-    dir_o = Vec3.where(run_int, fin.direction, direction)
-    bounces_o = torch.where(run_int, fin.n_bounces, bounces)
-
-    # ---- recursive rim clips on the sampled escapes ---------------------
-    fin_exit = run_int & (fin.status == EXITED)
-    q2 = sphere_hit(fin.seg_start, fin.direction, radius)
-    s2 = cone_crossing_t(q2, fin.direction, cos_tm, radius, r_out, INF)
-    clip2 = fin_exit & (s2 < INF)
-    rim_pt2 = q2 + fin.direction.scale(s2)
-    dgen = device_generator(k_rim2, device)
-    survive2 = (torch.rand((m,), generator=dgen, device=device, dtype=dtype)
-                < f32(scene.reflectance))
-    d2 = scatter(dgen, scene.surface_model, fin.direction,
-                 cone_face_normal(rim_pt2), scene)
-
-    # clipped-and-killed lanes die at the rim face
-    dead2 = clip2 & ~survive2
-    status_o = torch.where(dead2, ABSORBED, status_o)
-    pos_o = Vec3.where(dead2, rim_pt2, pos_o)
-    bounces_o = torch.where(clip2, fin.n_bounces + 1, bounces_o)
-
-    # ---- in-loop tail: clipped survivors + lanes still in the gap -------
-    still_gap = (status == RUNNING) & in_gap
-    cont = (clip2 & survive2) | still_gap
-    t_pos = Vec3.where(clip2, rim_pt2, pos)
-    t_dir = Vec3.where(clip2, d2, direction)
-    t_prev = Vec3.where(clip2, fin.seg_start, prev)
-    t_bounces = torch.where(clip2, fin.n_bounces + 1, bounces)
-
-    m2 = min(m, max(256, m >> 3))
-    n_overflow2 = torch.clamp(cont.sum(dtype=torch.int32) - m2, min=0)
-    idx2, valid2, (g_pos, g_dir, g_prev), (g_bounces,), _ = _compact_gather(
-        cont, [t_pos, t_dir, t_prev], [t_bounces], m2, m)
-    carry2 = (g_pos, g_dir, g_prev,
-              _i32(torch.where(valid2, RUNNING, ABSORBED)),
-              g_bounces, valid2)
-    if kernel_applicable(scene, cfg):
-        fin2 = finish_from_state(k_tail, scene, carry2, exact_rim=True)
-        pos2, dir2, prev2, status2, bounces2 = (
-            fin2.last_point, fin2.direction, fin2.seg_start, fin2.status,
-            fin2.n_bounces)
-    elif depth < 2 and m2 >= HYBRID_RECURSE_MIN:
-        (pos2, dir2, prev2, status2, bounces2,
-         ovf3) = _rim_continuation_hybrid(k_tail, scene, carry2, cfg,
-                                          radius, r_out, cos_tm, INF,
-                                          device, depth + 1)
-        n_overflow2 = n_overflow2 + ovf3
-    else:
-        step2 = make_bounce_step(k_tail, scene, m2, cfg, device)
-        block = max(1, min(int(cfg.block_iters), max_iters))
-        pos2, dir2, prev2, status2, bounces2, _ = _while_trace(
-            step2, carry2, max_iters, block)
-        status2 = torch.where(status2 == RUNNING, SUSPENDED, status2)
-
-    sidx2 = torch.where(valid2, idx2, m)
-    status_f = _put(status_o, sidx2, status2)
-    # tail-overflow still-gap lanes (counted in n_overflow2) cannot finish
-    status_f = torch.where(status_f == RUNNING, SUSPENDED, status_f)
-    return (_put_vec(pos_o, sidx2, pos2), _put_vec(dir_o, sidx2, dir2),
-            _put_vec(prev_o, sidx2, prev2), status_f,
-            _put(bounces_o, sidx2, bounces2), n_overflow2)
-
-
-def trace_rays_rim_deferred(
-    gen: torch.Generator,
-    scene: SphereScene,
-    source: Source,
-    n_rays: int,
-    cfg: TraceConfig = TraceConfig(),
-    capacity_shift: int = 4,
-    main_tracer=None,
-    *,
-    device,
-) -> tuple[TraceResult, RimOverflow]:
-    """Exact-rim physics as a post-pass over a simple-mode main trace:
-
-    1. main trace with ``exact_rim=False`` (``main_tracer``, called as
-       ``main_tracer(gen, scene, source, n, cfg, device=device)``; default
-       ``lossless(trace_rays)``).  It returns ``(TraceResult,
-       n_overflow)``; its count of rays lost goes into
-       ``RimOverflow.total``;
-    2. clip-test each exited lane's escape flight against the rim cone;
-    3. compact the clipped lanes into an ``n_rays >> capacity_shift``
-       buffer, apply the first rim bounce, and finish them with the
-       exact-rim step: the hybrid continuation for Lambertian scenes, else
-       one launch of the finish kernel where the kernels take the scene
-       (``trace_cuda.kernel_applicable``), else the waves tracer at
-       ``m >= _WAVES_CONTINUATION_MIN`` lanes and the eager loop below
-       that;
-    4. scatter the continuation back over the clipped lanes.
-
-    Returns ``(TraceResult, RimOverflow)``; ``RimOverflow.total`` counts
-    clipped rays beyond the buffer, left as optimistic EXITED, and the
-    rays the main tracer and the waves continuation lost.
-
-    Spans: ``trace.main`` (step 1), ``trace.rim`` (steps 2-4, with the
-    buffer's width ``m``) and inside it ``trace.rim.cont`` (the
-    continuation, with its ``kind``: ``hybrid``, ``kernel``, ``waves`` or
-    ``eager``).
-    """
-    from .trace_cuda import kernel_applicable
-    from .trace_direct import direct_applicable
-
-    if cfg.keep_history:
-        raise ValueError("rim-deferred tracing has no history buffer")
-    if int(scene.max_bounces) >= 1 << 24:
-        # _compact_gather carries bounce counts through a float32 mantissa
-        raise ValueError("max_bounces >= 2^24 would corrupt bounce counts "
-                         "in the deferred-rim pack")
-    k_main, k_first, k_cont = split(gen, 3)
-    main = main_tracer if main_tracer is not None else lossless(trace_rays)
-    with span("trace.main"):
-        res, main_overflow = main(k_main, scene.with_(exact_rim=False),
-                                  source, n_rays, cfg, device=device)
-    m = min(n_rays, max(256, n_rays >> capacity_shift))
-    if cfg.engine in ("auto", "direct") and direct_applicable(scene, cfg):
-        kind = "hybrid"
-    elif kernel_applicable(scene, cfg):
-        kind = "kernel"
-    elif m >= _WAVES_CONTINUATION_MIN:
-        kind = "waves"
-    else:
-        kind = "eager"
-    with span("trace.rim", m=m):
-        return _rim_post_pass(res, main_overflow, scene, n_rays, m, kind,
-                              cfg, k_first, k_cont, device)
-
-
-def _rim_post_pass(res, main_overflow, scene, n_rays, m, kind, cfg, k_first,
-                   k_cont, device):
-    """Steps 2-4 of ``trace_rays_rim_deferred`` over the main trace
-    ``res``, with an ``m``-lane buffer and the continuation ``kind``
-    (``hybrid``, ``kernel``, ``waves`` or ``eager``)."""
-    from .geometry import cone_crossing_t, cone_face_normal
-
-    dtype = cfg.dtype
-    radius = f32(scene.inner_radius)
-    r_out = f32(scene.outer_radius)
-    cos_tm = cos_theta_max(scene)
-    INF = 1e30
-
-    q = sphere_hit(res.seg_start, res.direction, radius)
-    s_rim = cone_crossing_t(q, res.direction, cos_tm, radius, r_out, INF)
-    clipped = (res.status == EXITED) & (s_rim < INF)
-    rim_pt = q + res.direction.scale(s_rim)
-
-    n_overflow = torch.clamp(clipped.sum(dtype=torch.int32) - m, min=0)
-    idx, valid, (c_pt, c_dir, c_prev), (c_b,), dropped = _compact_gather(
-        clipped, [rim_pt, res.direction, res.seg_start], [res.n_bounces],
-        m, n_rays, group_capacity=max(256, m >> 1))
-    n_overflow = n_overflow + dropped + main_overflow
-    c_bounces = c_b + _i32(valid)
-
-    # first rim bounce: roulette + the surface model about the rim normal
-    dgen = device_generator(k_first, device)
-    survive = (torch.rand((m,), generator=dgen, device=device, dtype=dtype)
-               < f32(scene.reflectance))
-    d_scat = scatter(dgen, scene.surface_model, c_dir,
-                     cone_face_normal(c_pt), scene)
-    status0 = _i32(torch.where(valid & survive, RUNNING, ABSORBED))
-    c_dir = Vec3.where(survive, d_scat, c_dir)
-    in_gap0 = valid & survive
-
-    carry = (c_pt, c_dir, c_prev, status0, c_bounces, in_gap0)
-    with span("trace.rim.cont", kind=kind):
-        pos, direction, prev, status, bounces, n_cont = _rim_continuation(
-            kind, k_cont, scene, carry, cfg, m, radius, r_out, cos_tm, INF,
-            device)
-
-    if n_cont is not None:
-        n_overflow = n_overflow + n_cont
-    sidx = torch.where(valid, idx, n_rays)
-    return (_put_result(res, sidx, TraceResult(status, pos, prev, direction,
-                                               bounces)),
-            RimOverflow(total=n_overflow, grouped_drops=dropped))
-
-
-def _rim_continuation(kind, k_cont, scene, carry, cfg, m, radius, r_out,
-                      cos_tm, INF, device):
-    """Finish the rim buffer's lanes from ``carry``: ``(pos, direction,
-    prev, status, bounces, n_overflow)``, ``n_overflow`` None where the
-    continuation loses no ray (the finish kernel, the eager loop)."""
-    max_iters = int(scene.max_bounces)
-    if kind == "hybrid":
-        return _rim_continuation_hybrid(k_cont, scene, carry, cfg, radius,
-                                        r_out, cos_tm, INF, device)
-    if kind == "kernel":
-        from .trace_cuda import finish_from_state
-
-        fin = finish_from_state(k_cont, scene, carry, exact_rim=True)
-        return (fin.last_point, fin.direction, fin.seg_start, fin.status,
-                fin.n_bounces, None)
-    if kind == "waves":
-        # a wide continuation wave-compacts its tail: after the gap
-        # resolves only re-entrant lanes survive, and the eager loop would
-        # run the whole bounce tail at width m.  A schedule too tight for
-        # the buffer suspends live clipped lanes at a compaction; that
-        # count goes into RimOverflow.total.
-        from .trace_waves import trace_waves_from_state
-
-        res_c, cont_ovf = trace_waves_from_state(
-            k_cont, scene, carry, cfg, wave_iters=RIM_CONT_WAVE_ITERS,
-            shrink=RIM_CONT_SHRINK, min_wave=16384,
-            first_wave_iters=RIM_CONT_FIRST_WAVE, device=device)
-        return (res_c.last_point, res_c.direction, res_c.seg_start,
-                res_c.status, res_c.n_bounces, cont_ovf)
-    step = make_bounce_step(k_cont, scene, m, cfg, device)
-    block = max(1, min(int(cfg.block_iters), max_iters))
-    pos, direction, prev, status, bounces, _ = _while_trace(
-        step, carry, max_iters, block)
-    return (pos, direction, prev,
-            torch.where(status == RUNNING, SUSPENDED, status), bounces, None)
 
 
 def exit_count(result: TraceResult, exit_port_z=-100.0) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """The kernels' wrappers, their plain PyTorch versions, and the simulate
-engine built on them — the counterpart of ``altair_tpu/core/trace_pallas.py``
-(``_bounce_kernel``, ``trace_rays_pallas``, ``_refill_kernel``,
-``trace_rays_refill``, ``trace_rays_fast``).
+engine's traces built on them — the counterpart of
+``altair_tpu/core/trace_pallas.py`` (``_bounce_kernel``,
+``trace_rays_pallas``, ``_refill_kernel``, ``trace_rays_refill``; its
+``trace_rays_fast`` is ``core/route.py``'s).
 
 ``bounce``, ``refill`` and ``finish`` are the wrappers.  On a CUDA tensor
 each launches its hand-written kernel (``csrc/bounce.cu``,
@@ -10,14 +11,15 @@ or raises; on a CPU tensor it runs its plain version (``bounce_plain``,
 ``refill_plain``, ``finish_plain``), the same computation in plain tensor
 ops.  There is no fallback from one to the other.
 
-Dispatch, as in the JAX package: batches of n >= ``REFILL_MIN`` run the
-refill kernel with ``_REFILL_BUDGET`` rays per lane and the tail handoff
-at ``_REFILL_HANDOFF``, whose stragglers finish in the finish kernel;
-smaller batches run the bounce kernel.  The finish kernel also runs the
-deferred rim post-pass's continuation (``finish_from_state``), which the
-JAX package runs as an XLA loop, and traces thick-rim scenes from the
-source in one launch (``trace_rays_finish``), where the JAX package runs
-its in-loop exact-rim ``trace_rays``.
+Routes, as in the JAX package (chosen by ``route.plan``): batches of
+n >= ``REFILL_MIN`` run the refill kernel with ``_REFILL_BUDGET`` rays per
+lane and the tail handoff at ``_REFILL_HANDOFF``
+(``trace_rays_refill_padded``), whose stragglers finish in the finish
+kernel; smaller batches run the bounce kernel.  The finish kernel also
+runs the deferred rim post-pass's continuation (``finish_from_state``),
+which the JAX package runs as an XLA loop, and traces thick-rim scenes
+from the source in one launch (``trace_rays_finish``), where the JAX
+package runs its in-loop exact-rim ``trace_rays``.
 """
 
 from __future__ import annotations
@@ -37,8 +39,7 @@ from .geometry import Vec3
 from .compact import nonzero_indices_grouped
 from .trace import (ABSORBED, EXITED, RUNNING, SUSPENDED, RimOverflow,
                     TraceResult, _i32, _put_result, draw_seeds,
-                    no_overflow, rim_deferred_capacity_shift, split,
-                    trace_rays, trace_rays_rim_deferred)
+                    no_overflow, split)
 
 # per kernel: its source and the Pallas kernel it replaces
 KERNELS = {
@@ -58,7 +59,7 @@ REFILL_LANES = 128
 REFILL_THREADS = 32
 # batches at least this big run the refill kernel (the JAX package's
 # constants, trace_pallas.py:933-942; module constants so a test can lower
-# them)
+# them: route.plan reads REFILL_MIN at each call)
 REFILL_MIN = 1 << 20
 _REFILL_BUDGET = 4
 _REFILL_HANDOFF = 0.01
@@ -688,26 +689,6 @@ def finish_from_state(gen: torch.Generator, scene: SphereScene, state, *,
                   exact_rim)
 
 
-def thick_rim(scene: SphereScene) -> bool:
-    """An exact rim too wide for the deferred post-pass: scalar scene
-    parameters that ``rim_deferred_capacity_shift`` rejects."""
-    import numbers
-
-    return (bool(scene.exact_rim)
-            and all(isinstance(v, numbers.Number)
-                    for v in (scene.theta_max_deg, scene.reflectance,
-                              scene.inner_radius, scene.outer_radius))
-            and rim_deferred_capacity_shift(scene) is None)
-
-
-def finish_route_applicable(scene: SphereScene, cfg: TraceConfig) -> bool:
-    """True when ``trace_rays_auto`` traces from the source with one
-    finish launch (``trace_rays_finish``): a thick rim, a static law,
-    float32 and no path history."""
-    return (thick_rim(scene) and _model_supported(scene)
-            and cfg.dtype == torch.float32 and not cfg.keep_history)
-
-
 def trace_rays_finish(
     gen: torch.Generator,
     scene: SphereScene,
@@ -723,7 +704,7 @@ def trace_rays_finish(
     normalised source direction, ``prev`` the source, RUNNING, no bounce,
     none in the gap), at most ``scene.max_bounces`` steps, the seed words
     drawn from the CPU key ``gen``.  The route of thick-rim scenes, whose
-    rim the deferred post-pass cannot take (``finish_route_applicable``).
+    rim the deferred post-pass cannot take (``route.plan``).
 
     Returns ``(TraceResult, RimOverflow)``; the kernel drops no ray, so
     the overflow is zero."""
@@ -1060,13 +1041,10 @@ def _check_simulate(scene: SphereScene, cfg: TraceConfig):
 
 
 def kernel_applicable(scene: SphereScene, cfg: TraceConfig) -> bool:
-    """True when ``trace_rays_fast`` runs the kernels (``pallas_applicable``
-    without the TPU test): a static law, float32, no history, and a rim
-    the deferred post-pass admits."""
-    if not (_model_supported(scene) and not cfg.keep_history
-            and cfg.dtype == torch.float32):
-        return False
-    return not scene.exact_rim or rim_deferred_capacity_shift(scene) is not None
+    """True when the kernels take the scene (``pallas_applicable`` without
+    the TPU test and the rim): a static law, float32 and no history."""
+    return (_model_supported(scene) and not cfg.keep_history
+            and cfg.dtype == torch.float32)
 
 
 def trace_rays_bounce(
@@ -1199,24 +1177,7 @@ def _slice(res: TraceResult, n: int) -> TraceResult:
                        res.n_bounces[:n])
 
 
-def _kernel_padded(gen, scene, source, n_rays, cfg, *, device):
-    """The simulate engine's main trace, ``(TraceResult, n_overflow)``:
-    the refill kernel with the tail handoff for n >= ``REFILL_MIN`` (the
-    batch padded up to a multiple of ``REFILL_LANES * _REFILL_BUDGET`` and
-    cut back), the bounce kernel otherwise."""
-    if n_rays >= REFILL_MIN:
-        chunk = REFILL_LANES * _REFILL_BUDGET
-        padded = -(-n_rays // chunk) * chunk
-        res, ovf = trace_rays_refill(gen, scene, source, padded, cfg,
-                                     rays_per_lane=_REFILL_BUDGET,
-                                     handoff_frac=_REFILL_HANDOFF,
-                                     device=device)
-        return (res if padded == n_rays else _slice(res, n_rays)), ovf
-    return (trace_rays_bounce(gen, scene, source, n_rays, cfg, device=device),
-            torch.zeros((), dtype=torch.int32, device=device))
-
-
-def trace_rays_fast(
+def trace_rays_refill_padded(
     gen: torch.Generator,
     scene: SphereScene,
     source: Source,
@@ -1224,26 +1185,15 @@ def trace_rays_fast(
     cfg: TraceConfig = TraceConfig(),
     *,
     device,
-) -> tuple[TraceResult, RimOverflow]:
-    """The simulate engine: the bounce kernel, or the refill kernel and its
-    straggler finish at n >= ``REFILL_MIN``, composed with the deferred rim
-    post-pass for exact-rim scenes (whose continuation runs the finish
-    kernel).  What the kernels cannot take
-    (float64, a thick rim, a scatter callable, path history) runs the
-    eager ``trace_rays``, as the JAX function falls back to its XLA kernel.
-
-    Returns ``(TraceResult, RimOverflow)``; ``RimOverflow.total`` counts
-    rim-capacity overflow and the rays the refill handoff's compaction
-    lost.  The JAX function drops both counts; the port returns them so a
-    caller can check them."""
-    if not kernel_applicable(scene, cfg):
-        return (trace_rays(gen, scene, source, n_rays, cfg, device=device),
-                no_overflow(device))
-    if not scene.exact_rim:
-        res, ovf = _kernel_padded(gen, scene, source, n_rays, cfg,
-                                  device=device)
-        return res, RimOverflow(total=ovf, grouped_drops=torch.zeros_like(ovf))
-    shift = rim_deferred_capacity_shift(scene)
-    return trace_rays_rim_deferred(gen, scene, source, n_rays, cfg,
-                                   capacity_shift=shift,
-                                   main_tracer=_kernel_padded, device=device)
+) -> tuple[TraceResult, torch.Tensor]:
+    """The simulate engine's large-batch trace: ``trace_rays_refill`` with
+    ``_REFILL_BUDGET`` rays a lane and the tail handoff at
+    ``_REFILL_HANDOFF``, over the batch padded up to a multiple of
+    ``REFILL_LANES * _REFILL_BUDGET`` and cut back to ``n_rays``.  Returns
+    ``(TraceResult, n_overflow)``."""
+    chunk = REFILL_LANES * _REFILL_BUDGET
+    padded = -(-n_rays // chunk) * chunk
+    res, ovf = trace_rays_refill(gen, scene, source, padded, cfg,
+                                 rays_per_lane=_REFILL_BUDGET,
+                                 handoff_frac=_REFILL_HANDOFF, device=device)
+    return (res if padded == n_rays else _slice(res, n_rays)), ovf

@@ -1,5 +1,6 @@
-"""The wave-compaction tracer and the engine dispatch — the PyTorch
-counterpart of ``altair_tpu/core/trace_waves.py``.
+"""The wave-compaction tracer — the PyTorch counterpart of
+``altair_tpu/core/trace_waves.py`` (whose engine dispatch is the port's
+``core/route.py``).
 
 The eager bounce loop keeps every lane of its batch until the last ray
 dies.  The waves tracer runs a fixed block of iterations over the batch,
@@ -24,15 +25,9 @@ from ..config import SphereScene, Source, TraceConfig
 from ..io.profiling import count, span
 from .compact import nonzero_indices
 from .geometry import Vec3
-from .trace import (ABSORBED, RUNNING, SUSPENDED, RimOverflow, TraceResult,
-                    _i32, _put_result, _source_rays, _while_trace,
-                    lossless, make_bounce_step, no_overflow,
-                    rim_deferred_capacity_shift, split, trace_rays,
-                    trace_rays_rim_deferred)
-from . import trace_cuda
-from .trace_cuda import (finish_route_applicable, kernel_applicable,
-                         trace_rays_fast, trace_rays_finish)
-from .trace_direct import direct_applicable, trace_rays_direct
+from .trace import (ABSORBED, RUNNING, SUSPENDED, TraceResult, _i32,
+                    _put_result, _source_rays, make_bounce_step, split,
+                    trace_eager_from_state)
 
 
 def wave_schedule(n_rays: int, max_iters: int, wave_iters: int = 256,
@@ -95,9 +90,7 @@ def trace_waves_from_state(
 ) -> tuple[TraceResult, torch.Tensor]:
     """The waves tracer from a mid-flight ray state ``(pos, direction,
     prev, status, bounces, in_gap)`` (the bounce-step carry).  Used by
-    ``trace_rays_waves`` and by the deferred-rim continuation of scenes
-    the kernels do not take (elsewhere ``trace_cuda.finish`` runs such a
-    state in one launch).
+    ``trace_rays_waves``.
 
     ``first_wave_iters`` (None = ``wave_iters``) shortens wave 0 only, for
     an entry state that is mostly dead lanes.  The tail caps its bounce
@@ -177,13 +170,9 @@ def _waves(gen, scene, state, cfg, waves, tail, live, device):
         # guard compares its own index with the scene cap, so the cap is
         # the iterations that remain
         (wkey,) = split(gen, 1)
-        step = make_bounce_step(wkey, scene.with_(max_bounces=tail[1]), m,
-                                cfg, device)
-        pos, direction, prev, status, bounces, _ = _while_trace(
-            step, (pos, direction, prev, status, bounces, in_gap), tail[1],
-            max(1, min(int(cfg.block_iters), tail[1])))
-        out = _put_result(out, perm,
-                          TraceResult(status, pos, prev, direction, bounces))
+        out = _put_result(out, perm, trace_eager_from_state(
+            wkey, scene.with_(max_bounces=tail[1]),
+            (pos, direction, prev, status, bounces, in_gap), cfg, device))
 
     return out._replace(status=torch.where(out.status == RUNNING, SUSPENDED,
                                            out.status)), n_overflow
@@ -202,95 +191,3 @@ def waves_safe(scene: SphereScene, wave_iters: int = 256,
     s = float(scene.reflectance) * (1 - port_escape_probability(
         scene.theta_max_deg))
     return s ** wave_iters < 1 / (2 * shrink)
-
-
-def trace_rays_auto(
-    gen: torch.Generator,
-    scene: SphereScene,
-    source: Source,
-    n_rays: int,
-    cfg: TraceConfig = TraceConfig(),
-    waves_threshold: int = 262_144,
-    *,
-    device,
-) -> tuple[TraceResult, RimOverflow]:
-    """Engine dispatch:
-
-    * statically-Lambertian scenes sample the trace outcome from its
-      closed-form law (``trace_rays_direct``), wrapped in the deferred rim
-      post-pass for exact-rim scenes; ``cfg.engine="simulate"`` opts out;
-    * scenes the kernels take run the simulate engine ``trace_rays_fast``
-      (the bounce kernel, or the refill kernel and its straggler finish at
-      n >= ``trace_cuda.REFILL_MIN``, plus the deferred rim post-pass);
-    * a thick rim (one the deferred post-pass cannot take) under a static
-      law in float32 runs ``trace_rays_finish``: the in-loop exact-rim
-      physics from the source in one launch of the finish kernel;
-    * the rest (float64, a scatter callable) run ``trace_rays_waves`` at
-      ``n_rays >= waves_threshold`` when ``waves_safe``, else the eager
-      ``trace_rays``: under the deferred rim post-pass when the rim admits
-      it, with the in-loop exact rim otherwise.
-
-    ``gen`` is a CPU ``torch.Generator`` (the key); ``device`` says where
-    the rays are traced.  Returns ``(TraceResult, RimOverflow)``: the JAX
-    function drops the overflow counts, the port returns them (rim
-    capacity, the waves tracer's and the refill handoff compaction's) so a
-    caller can check them.  Path history (``cfg.keep_history``) runs the eager
-    ``trace_rays``, the only tracer with a history buffer; a custom scatter
-    callable is no static law, so it runs the waves or eager tracers.
-
-    The span ``trace``, with ``n_rays`` and the ``route`` taken:
-    ``direct``, ``bounce`` or ``refill`` (the kernels), ``finish`` (the
-    thick rim from the source), ``waves`` or ``eager``.
-    """
-    if cfg.engine not in ("auto", "simulate", "direct"):
-        raise ValueError(f"unknown engine {cfg.engine!r}")
-    with span("trace", n_rays=n_rays) as sp:
-        return _dispatch(sp, gen, scene, source, n_rays, cfg,
-                         waves_threshold, device)
-
-
-def _dispatch(sp, gen, scene, source, n_rays, cfg, waves_threshold, device):
-    """``trace_rays_auto``'s engine choice; names the route on ``sp``."""
-    if cfg.keep_history:
-        if cfg.engine == "direct":
-            raise ValueError("direct sampling has no path history")
-        sp.set(route="eager")
-        return (trace_rays(gen, scene, source, n_rays, cfg, device=device),
-                no_overflow(device))
-    if cfg.engine in ("auto", "direct") and direct_applicable(scene, cfg):
-        sp.set(route="direct")
-        if not scene.exact_rim:
-            return (trace_rays_direct(gen, scene, source, n_rays, cfg,
-                                      device=device), no_overflow(device))
-        shift = rim_deferred_capacity_shift(scene)
-        if shift is not None:
-            return trace_rays_rim_deferred(
-                gen, scene, source, n_rays, cfg, capacity_shift=shift,
-                main_tracer=lossless(trace_rays_direct), device=device)
-        # a thick rim needs the in-loop exact-rim trace: on to the
-        # simulation engines
-    if cfg.engine == "direct":
-        raise NotImplementedError(
-            "engine='direct' requires a statically-Lambertian scene whose "
-            "rim (if exact_rim) admits the deferred post-pass")
-    if finish_route_applicable(scene, cfg):
-        sp.set(route="finish")
-        return trace_rays_finish(gen, scene, source, n_rays, cfg,
-                                 device=device)
-    if kernel_applicable(scene, cfg):
-        sp.set(route="refill" if n_rays >= trace_cuda.REFILL_MIN
-               else "bounce")
-        return trace_rays_fast(gen, scene, source, n_rays, cfg, device=device)
-    use_waves = n_rays >= waves_threshold and waves_safe(scene)
-    sp.set(route="waves" if use_waves else "eager")
-    shift = rim_deferred_capacity_shift(scene) if scene.exact_rim else None
-    if shift is not None:
-        return trace_rays_rim_deferred(
-            gen, scene, source, n_rays, cfg, capacity_shift=shift,
-            main_tracer=trace_rays_waves if use_waves else None, device=device)
-    if use_waves:
-        res, ovf = trace_rays_waves(gen, scene, source, n_rays, cfg,
-                                    device=device)
-        return res, RimOverflow(total=ovf, grouped_drops=torch.zeros_like(ovf))
-    return (trace_rays(gen, scene, source, n_rays, cfg, device=device),
-            no_overflow(device))

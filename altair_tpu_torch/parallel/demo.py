@@ -48,7 +48,7 @@ from ..core.score import (binomial_cells_from_counts, binomial_pos_chunk,
                           hits_insphere_disks, hits_single_detector,
                           insphere_disk_position, z_angle_histogram)
 from ..core.trace import fold_in, split
-from ..core.trace_waves import trace_rays_auto
+from ..core.route import trace_rays_auto
 
 MAX_BOUNCES = 64
 SCENE = SCENE_OPTIMIZE.with_(max_bounces=MAX_BOUNCES)
@@ -250,7 +250,7 @@ def reference(world_size: int, n_rays: int, device) -> dict:
         return counts
 
     def series(k, scenes_, srcs, grid=None):
-        tracer = members_tracer(scenes_, CFG)
+        tracer = members_tracer(scenes_, CFG, n)
         cap = max(exit_capacity(m, n) for m in scenes_)
         rows = []
         for i, (scene, src) in enumerate(zip(scenes_, srcs)):

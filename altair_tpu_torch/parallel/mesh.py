@@ -31,9 +31,9 @@ What follows from that difference:
 * the trace-once routes score the compacted exit subset
   (``fluxmap_trace_once_compact``), as the port's single-device sweep does;
 * ``_pick_tracer`` has no counterpart: scenes are concrete here, so
-  ``trace_rays_auto`` dispatches (its ``waves_threshold`` argument is where
-  the JAX module's ``WAVES_THRESHOLD`` lives); ``scene_spec`` and
-  ``_result_spec`` are ``shard_map`` plumbing and have none either.
+  ``trace_rays_auto`` plans each trace (``core/route.py``, whose
+  ``WAVES_MIN`` is the JAX module's ``WAVES_THRESHOLD``); ``scene_spec``
+  and ``_result_spec`` are ``shard_map`` plumbing and have none either.
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ from ..core.score import (binomial_cells_from_counts, binomial_pos_chunk,
                           hits_insphere_disks, hits_single_detector,
                           z_angle_histogram)
 from ..core.trace import TraceResult, fold_in, split
-from ..core.trace_waves import trace_rays_auto
+from ..core.route import trace_rays_auto
 from ..io.profiling import host_int
 
 _SUMMED = (torch.int32, torch.int64)
@@ -408,7 +408,7 @@ def sharded_param_sweep(
     else:
         srcs = [source] * len(members)
 
-    tracer = members_tracer(members, cfg)
+    tracer = members_tracer(members, cfg, n_local)
     cap = max(exit_capacity(m, n_local) for m in members)
     k = fold_in(gen, mesh.rank)
     rows = []

@@ -15,7 +15,7 @@ import torch
 
 from ..config import SphereScene, Source, TraceConfig
 from ..core.score import exit_angle_histogram, exit_directions, z_angle_histogram
-from ..core.trace_waves import trace_rays_auto
+from ..core.route import trace_rays_auto
 from ..io.profiling import host_int
 
 

@@ -24,17 +24,16 @@ import torch
 
 from ..config import SphereScene, Source, TraceConfig
 from ..core.geometry import Vec3
-from ..core.score import (_pad_positions, hits_insphere_disks,
+from ..core.score import (_lap_clock, _pad_positions, hits_insphere_disks,
                           insphere_disk_hit_mask, insphere_disk_position)
 from ..core.trace import fold_in
 from ..io.profiling import count, span
 from ..parallel.mesh import on_rank0
-# engine dispatch: the disk lives outside the sphere, so any engine's
-# final-segment contract feeds the disk test (the corpus scene's thick
-# shell takes the finish kernel from the source in float32, the in-loop
-# rim tracers otherwise; thin-shell scenes get the direct sampler or the
-# kernels)
-from ..core.trace_waves import trace_rays_auto
+# the disk lives outside the sphere, so any route's final-segment
+# contract feeds the disk test (the corpus scene's thick shell takes the
+# finish kernel from the source in float32, the in-loop rim tracers
+# otherwise; thin-shell scenes get the direct sampler or the kernels)
+from ..core.route import trace_rays_auto
 
 
 @dataclasses.dataclass
@@ -44,13 +43,6 @@ class InsphereSweepResult:
     fractions: np.ndarray
     n_rays: int
     wall_time_s: float
-
-
-def _lap_end(device) -> float:
-    """The host clock once the device has finished what was launched."""
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-    return time.perf_counter()
 
 
 def _score(res, cen, nrm, disk_radius, chunk=None):
@@ -85,25 +77,27 @@ def _retrace_counts(key, scene, source, C, Nrm, disk_radius, n_rays, cfg,
     C, Nrm = _pad_positions(C, Nrm, n_chunks * chunk)
     overflow = torch.zeros((), dtype=torch.int32, device=device)
     counts = []
+    lap = _lap_clock(laps, device)
     for i in range(n_chunks):
         t0 = time.perf_counter()
         res, rim = trace_rays_auto(fold_in(key, i), scene, source,
                                    n_rays * chunk, cfg, device=device)
-        t1 = _lap_end(device) if laps is not None else None
+        t1 = lap()
         overflow = overflow + rim.total
         sl = slice(i * chunk, (i + 1) * chunk)
         cen = Vec3(*C[sl].repeat_interleave(n_rays, 0).unbind(1))
         nrm = Vec3(*Nrm[sl].repeat_interleave(n_rays, 0).unbind(1))
         counts.append(_score(res, cen, nrm, disk_radius, chunk))
         if laps is not None:
-            _add_laps(laps, device, res, (t0, t1), chunk)
+            _add_laps(laps, lap, res, (t0, t1), chunk)
     return torch.cat(counts)[:P], overflow
 
 
-def _add_laps(laps, device, res, trace_lap, n_disks):
+def _add_laps(laps, lap, res, trace_lap, n_disks):
     """Record one batch's trace lap and the disk count's lap after it
-    (both ended by a device sync); the bounce sum is taken after both."""
-    t2 = _lap_end(device)
+    (both ended by a device sync, ``lap`` of ``_lap_clock``); the bounce
+    sum is taken after both."""
+    t2 = lap()
     rays = res.status.shape[0]
     laps["trace"].append({"start": trace_lap[0], "end": trace_lap[1],
                           "rays": rays,
@@ -207,14 +201,15 @@ def _sweep(sp, scene, source, device, disk_radius, n_rays, thetas, phis,
                                            chunk, device, laps)
     else:
         sp.set(chunks=1)
+        lap = _lap_clock(laps, device)
         t_tr = time.perf_counter()
         res, rim = trace_rays_auto(key, scene, source, n_rays, cfg,
                                    device=device)
-        t_end = _lap_end(device) if laps is not None else None
+        t_end = lap()
         counts = _score(res, C, Nrm, float(disk_radius))
         overflow = rim.total
         if laps is not None:
-            _add_laps(laps, device, res, (t_tr, t_end), len(tt))
+            _add_laps(laps, lap, res, (t_tr, t_end), len(tt))
     *counts, overflow = torch.cat([counts, overflow.reshape(1)]).tolist()
     if laps is not None:
         for lap in laps["trace"]:

@@ -37,7 +37,7 @@ from ..core.score import (exit_capacity, fluxmap_retrace,
                           fluxmap_retrace_binomial, fluxmap_trace_once_compact,
                           grid_centers_normals, hits_single_detector)
 from ..core.trace import fold_in
-from ..core.trace_waves import trace_rays_auto
+from ..core.route import trace_rays_auto
 from ..io import (EtaTracker, FluxmapMetadata, FluxmapWriter, debug_stamp,
                   fluxmap_filename, notify_bell, read_fluxmap)
 from ..io.profiling import host_int

@@ -37,10 +37,10 @@ from ..config import DetectorGrid, SphereScene, Source, TraceConfig
 from ..core.geometry import Vec3, ray_box_exit_t
 from ..core.sampling import mixed_brdf
 from ..core.score import fluxmap_trace_once
-from ..core.trace import (EXITED, RUNNING, SUSPENDED, TraceResult, _i32,
-                          _source_rays, _while_trace, device_generator, f32,
-                          make_bounce_step, split)
-from ..core.trace_waves import trace_rays_auto
+from ..core.route import trace_rays_auto
+from ..core.trace import (EXITED, RUNNING, TraceResult, _i32, _source_rays,
+                          device_generator, f32, split,
+                          trace_eager_from_state)
 from ..io.profiling import host_int
 
 
@@ -66,16 +66,11 @@ def _retrace_from(gen, scene, pos: Vec3, direction: Vec3, n_rays, cfg, *,
     prev0 = pos
     pos = Vec3.where(traceable, pos, box0)
 
-    max_iters = int(scene.max_bounces)
-    block = max(1, min(32, max_iters))
-    step = make_bounce_step(gen, scene, n_rays, cfg, device)
     bounces0 = torch.zeros((n_rays,), dtype=torch.int32, device=device)
     in_gap0 = torch.zeros((n_rays,), dtype=torch.bool, device=device)
-    pos, direction, prev, status, bounces, _ = _while_trace(
-        step, (pos, direction, prev0, status0, bounces0, in_gap0), max_iters,
-        block)
-    status = torch.where(status == RUNNING, SUSPENDED, status)
-    return TraceResult(status, pos, prev, direction, bounces)
+    return trace_eager_from_state(
+        gen, scene, (pos, direction, prev0, status0, bounces0, in_gap0), cfg,
+        device, block=32)
 
 
 def trace_scatter_retrace(

@@ -17,6 +17,7 @@ direction series) are sequential overnight loops.  Here a series is either
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Sequence
 
@@ -25,10 +26,9 @@ import torch
 
 from ..config import (DetectorGrid, SphereScene, Source, TraceConfig,
                       validate)
+from ..core.route import plan, run
 from ..core.score import exit_capacity, fluxmap_trace_once_compact
-from ..core.trace import (RimOverflow, fold_in, lossless,
-                          rim_deferred_capacity_shift, trace_rays,
-                          trace_rays_rim_deferred)
+from ..core.trace import fold_in
 from .observer import SweepResult, sweep_detector_trace_once
 
 
@@ -151,68 +151,25 @@ def scene_members(scenes: SphereScene):
             for f in dataclasses.fields(scenes) if f.name not in _SCENE_META})
 
 
-def _series_tracer(base_scene: SphereScene, port_angles, cfg: TraceConfig):
+def _series_tracer(base_scene: SphereScene, port_angles, cfg: TraceConfig,
+                   n_rays: int):
     """``members_tracer`` for the port-angle members of ``base_scene``."""
     return members_tracer(
-        [base_scene.with_(theta_max_deg=float(p)) for p in port_angles], cfg)
+        [base_scene.with_(theta_max_deg=float(p)) for p in port_angles], cfg,
+        n_rays)
 
 
-def members_tracer(members: Sequence[SphereScene], cfg: TraceConfig):
-    """Pick the one tracer every member of a series runs, from the
-    concrete member scenes (which share the static fields: surface model,
-    bounce cap, rim mode), as the JAX functions do before they batch:
-
-    * the direct sampler for a statically-Lambertian scene (unless
-      ``cfg.engine == "simulate"``), under the deferred rim post-pass for
-      an exact-rim scene;
-    * otherwise the simulate engine's kernels (bounce or refill by the
-      batch size) where every member admits them, under the same post-pass;
-    * the eager ``trace_rays`` with the in-loop rim when any member's rim
-      is too thick to defer, or the kernels cannot take the scene.
-
-    The deferred post-pass runs at ONE capacity for all members: the
-    smallest shift (largest buffer) any member plans, so no member's plan
-    changes which rays overflow.  Returns ``tracer(gen, scene, source, n,
-    cfg, device=...) -> (TraceResult, RimOverflow)``."""
-    from ..core.trace_cuda import _kernel_padded, kernel_applicable
-    from ..core.trace_direct import direct_applicable, trace_rays_direct
-
-    def eager(gen, scene, source, n, cfg, *, device):
-        res, ovf = lossless(trace_rays)(gen, scene, source, n, cfg,
-                                        device=device)
-        return res, RimOverflow(total=ovf, grouped_drops=ovf)
-
-    base_scene = members[0]
-    if direct_applicable(base_scene, cfg) and cfg.engine != "simulate":
-        main = lossless(trace_rays_direct)
-    else:
-        if cfg.engine == "direct":
-            raise NotImplementedError(
-                "engine='direct' requires a statically-Lambertian scene")
-        if not all(kernel_applicable(m, cfg) for m in members):
-            return eager
-        main = _kernel_padded
-    if not base_scene.exact_rim:
-        def simple(gen, scene, source, n, cfg, *, device):
-            res, ovf = main(gen, scene, source, n, cfg, device=device)
-            return res, RimOverflow(total=ovf,
-                                    grouped_drops=torch.zeros_like(ovf))
-        return simple
-    shifts = [rim_deferred_capacity_shift(m) for m in members]
-    if any(s is None for s in shifts):
-        if cfg.engine == "direct":
-            raise NotImplementedError(
-                "engine='direct': a member's rim does not admit the "
-                "deferred post-pass (thick rim band)")
-        return eager   # a member needs the in-loop rim
-    shift = min(shifts)
-
-    def tracer(gen, scene, source, n, cfg, *, device):
-        return trace_rays_rim_deferred(gen, scene, source, n, cfg,
-                                       capacity_shift=shift,
-                                       main_tracer=main, device=device)
-
-    return tracer
+def members_tracer(members: Sequence[SphereScene], cfg: TraceConfig,
+                   n_rays: int):
+    """The one tracer every member of a series runs: the route
+    ``route.plan`` gives the concrete member scenes (which share the
+    static fields: surface model, bounce cap, rim mode) at ``n_rays`` rays,
+    as the JAX functions pick one before they batch.  Its deferred rim
+    post-pass runs at ONE capacity for all members, the largest any member
+    plans, so no member's plan changes which rays overflow.  Returns
+    ``tracer(gen, scene, source, n, cfg, device=...) -> (TraceResult,
+    RimOverflow)``."""
+    return functools.partial(run, plan(members, cfg, n_rays))
 
 
 def run_series_vmapped(
@@ -255,7 +212,7 @@ def run_series_vmapped(
         ports = [float(p) for p in port_angles]
         scenes = [base_scene.with_(theta_max_deg=p) for p in ports]
         srcs = [source] * len(scenes)
-    tracer = _series_tracer(base_scene, ports, cfg)
+    tracer = _series_tracer(base_scene, ports, cfg, n_rays)
     cap = max(exit_capacity(base_scene.with_(theta_max_deg=p), n_rays)
               for p in ports)
     key = torch.Generator().manual_seed(seed)

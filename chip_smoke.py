@@ -883,7 +883,6 @@ def phase_retrace_rows(device, binom_cells, save_folder, n_per_pos=50_000,
 
     from altair_tpu_torch import (SCENE_OPTIMIZE, SOURCE_OVERNIGHT,
                                   DetectorGrid, TraceConfig)
-    from altair_tpu_torch.core import trace_cuda
     from altair_tpu_torch.io import profiling, read_fluxmap
     from altair_tpu_torch.sweep import sweep_detector_retrace
 
@@ -954,20 +953,19 @@ def phase_retrace_rows(device, binom_cells, save_folder, n_per_pos=50_000,
     out["max_sigma"] = worst
 
     from altair_tpu_torch import trace_rays_auto
-    from altair_tpu_torch.core.trace_direct import trace_rays_direct
 
     n_chunk = 32 * n_per_pos
+    # the simple-mode scene takes the engine's main route alone: the
+    # direct sampler, or the bounce kernel
     simple = scene.with_(exact_rim=False)
-    mains = {"auto": trace_rays_direct,
-             "simulate": lambda *a, **k: trace_cuda._kernel_padded(*a, **k)[0]}
-    for engine, main in mains.items():
+    for engine in ("auto", "simulate"):
         cfg = TraceConfig(engine=engine)
         stages = {}
         for name, fn in (
                 ("chunk_trace_s", lambda: trace_rays_auto(
                     torch.Generator().manual_seed(seed + 7), scene,
                     SOURCE_OVERNIGHT, n_chunk, cfg, device=device)),
-                ("main_trace_s", lambda: main(
+                ("main_trace_s", lambda: trace_rays_auto(
                     torch.Generator().manual_seed(seed + 8), simple,
                     SOURCE_OVERNIGHT, n_chunk, cfg, device=device))):
             sync(device)

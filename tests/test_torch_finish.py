@@ -1,7 +1,7 @@
 """The finish kernel's plain version (``trace_cuda.finish_plain``) on the
 CPU: the deferred rim post-pass through it against the JAX package's
 exact-rim trace, the lanes it must leave or suspend, and the routes that
-keep the eager and waves loops.  The CUDA kernel is held against
+keep the eager loop.  The CUDA kernel is held against
 ``finish_plain`` on the card (``tests/test_torch_finish_cuda.py``,
 ``chip_smoke.py``)."""
 
@@ -15,11 +15,11 @@ import torch
 from altair_tpu.config import SCENE_OPTIMIZE, SOURCE_OVERNIGHT, SurfaceModel
 from altair_tpu.core.trace import trace_rays as j_trace
 from altair_tpu_torch import TraceConfig, convert
-from altair_tpu_torch.core import trace as trace_mod, trace_cuda
+from altair_tpu_torch.core import route, trace_cuda
 from altair_tpu_torch.core.geometry import Vec3
+from altair_tpu_torch.core.route import trace_rays_rim_deferred
 from altair_tpu_torch.core.trace import (ABSORBED, EXITED, RUNNING,
-                                         SUSPENDED, _source_rays,
-                                         trace_rays_rim_deferred)
+                                         SUSPENDED, _source_rays)
 from altair_tpu_torch.io import profiling
 
 torch.set_num_threads(1)
@@ -100,7 +100,7 @@ def test_rim_pass_loses_no_ray_at_any_fill(monkeypatch, capacity_shift):
     lane finished, and RimOverflow.total is exactly the clipped rays the
     buffer could not hold, with nothing from the continuation."""
     seen = {}
-    real_finish, real_gather = trace_cuda.finish, trace_mod._compact_gather
+    real_finish, real_gather = trace_cuda.finish, route._compact_gather
 
     def spy_finish(seed, scene_vec, rim_vec, state, model, max_iters,
                    exact_rim):
@@ -115,7 +115,7 @@ def test_rim_pass_loses_no_ray_at_any_fill(monkeypatch, capacity_shift):
         return real_gather(mask, vecs, ints, capacity, n, group_capacity)
 
     monkeypatch.setattr(trace_cuda, "finish", spy_finish)
-    monkeypatch.setattr(trace_mod, "_compact_gather", spy_gather)
+    monkeypatch.setattr(route, "_compact_gather", spy_gather)
     _, ovf = _port_deferred(SurfaceModel.MIXED_BRDF, seed=capacity_shift,
                             capacity_shift=capacity_shift)
     running, left = seen["finish"]

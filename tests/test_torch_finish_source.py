@@ -18,6 +18,7 @@ from scipy.stats import ks_2samp
 from altair_tpu.config import SCENE_INSPHERE, SOURCE_DEMO
 from altair_tpu.core.trace import trace_rays as j_trace
 from altair_tpu_torch import TraceConfig, convert, trace_rays_auto
+from altair_tpu_torch.core import route as route_mod
 from altair_tpu_torch.core import trace as trace_mod, trace_cuda
 from altair_tpu_torch.core.trace import EXITED, RUNNING, SUSPENDED
 from altair_tpu_torch.io import profiling
@@ -128,7 +129,7 @@ def test_route_is_chosen_by_the_scene(monkeypatch, case, route):
     elif case == "callable":
         scene = scene.with_(surface_model=_callable_law)
     assert trace_mod.rim_deferred_capacity_shift(scene) is None
-    assert trace_cuda.thick_rim(scene)
+    assert route_mod.plan([scene], cfg, 256) == (route, None, None)
     calls = _spy_finish(monkeypatch)
     profiling.clear()
     with profiling.tracing():
@@ -151,14 +152,15 @@ def test_route_is_chosen_by_the_scene(monkeypatch, case, route):
 
 def test_thin_rims_keep_their_routes():
     """A rim the deferred post-pass takes, or no exact rim at all, is no
-    thick rim: such scenes do not take the route."""
+    thick rim: such scenes do not take the route, whatever the engine."""
     from altair_tpu.config import SCENE_OPTIMIZE
 
     thin = convert.scene(SCENE_OPTIMIZE)
-    assert not trace_cuda.thick_rim(thin)
-    assert not trace_cuda.finish_route_applicable(thin, TraceConfig())
-    assert not trace_cuda.thick_rim(convert.scene(SCENE.with_(
-        exact_rim=False)))
+    assert trace_mod.rim_deferred_capacity_shift(thin) is not None
+    for scene in (thin, convert.scene(SCENE.with_(exact_rim=False))):
+        for engine in ("auto", "simulate"):
+            assert route_mod.plan([scene], TraceConfig(engine=engine),
+                                  256).main != "finish"
 
 
 def test_lanes_at_the_cap_come_back_suspended():

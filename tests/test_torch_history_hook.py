@@ -22,7 +22,7 @@ import altair_tpu_torch as T
 from altair_tpu_torch import convert
 from altair_tpu_torch.core import sampling as tsampling
 from altair_tpu_torch.core import score as tscore
-from altair_tpu_torch.core import trace as ttrace
+from altair_tpu_torch.core import route as troute, trace as ttrace
 from altair_tpu_torch.core import trace_cuda, trace_direct as tdirect
 
 torch.set_num_threads(1)
@@ -224,18 +224,18 @@ def test_auto_routes_history_and_refuses_where_jax_does():
         j_auto(jax.random.key(0), SCENE, SOURCE_OVERNIGHT, 64,
                JCfg(keep_history=5, engine="direct"))
     with pytest.raises(ValueError, match="history"):
-        ttrace.trace_rays_rim_deferred(g, T_SCENE, T_SOURCE, 64,
+        troute.trace_rays_rim_deferred(g, T_SCENE, T_SOURCE, 64,
                                        T.TraceConfig(keep_history=5),
                                        device="cpu")
     with pytest.raises(ValueError, match="history"):
         jtrace.trace_rays_rim_deferred(jax.random.key(0), SCENE,
                                        SOURCE_OVERNIGHT, 64,
                                        JCfg(keep_history=5))
-    res, _ = trace_cuda.trace_rays_fast(g, T_SCENE, T_SOURCE, 64,
-                                        T.TraceConfig(keep_history=5),
-                                        device="cpu")
+    res, _ = troute.trace_rays_fast(g, T_SCENE, T_SOURCE, 64,
+                                    T.TraceConfig(keep_history=5),
+                                    device="cpu")
     assert res.history is not None
-    res, _ = trace_cuda.trace_rays_fast(
+    res, _ = troute.trace_rays_fast(
         g, T_SCENE.with_(surface_model=_lambertian_hook(tsampling)),
         T_SOURCE, 64, device="cpu")
     assert res.history is None and res.status.shape == (64,)

@@ -19,7 +19,7 @@ from altair_tpu_torch.core import qmc as tqmc
 from altair_tpu_torch.core.trace import EXITED, _source_rays
 from altair_tpu_torch.core.trace_direct import (trace_direct_from_uniforms,
                                                 trace_rays_direct)
-from altair_tpu_torch.core.trace_waves import trace_rays_auto
+from altair_tpu_torch.core.route import trace_rays_auto
 
 torch.set_num_threads(1)
 

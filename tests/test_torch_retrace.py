@@ -20,7 +20,7 @@ from altair_tpu_torch import convert
 from altair_tpu_torch import TraceConfig as TCfg
 from altair_tpu_torch.core.geometry import Vec3, detector_position
 from altair_tpu_torch.core.trace import EXITED, TraceResult, fold_in
-from altair_tpu_torch.core.trace_waves import trace_rays_auto
+from altair_tpu_torch.core.route import trace_rays_auto
 
 torch.set_num_threads(1)
 

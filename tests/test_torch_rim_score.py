@@ -12,9 +12,9 @@ from altair_tpu.config import SCENE_OPTIMIZE, SOURCE_OVERNIGHT, DetectorGrid, Tr
 from altair_tpu.core.trace import trace_rays_rim_deferred as j_rim
 from altair_tpu.core.trace_direct import trace_rays_direct as j_direct
 from altair_tpu_torch import convert
+from altair_tpu_torch.core.route import trace_rays_rim_deferred
 from altair_tpu_torch.core.trace import (EXITED, _put, lossless,
-                                         rim_deferred_capacity_shift,
-                                         trace_rays_rim_deferred)
+                                         rim_deferred_capacity_shift)
 from altair_tpu_torch.core.trace_direct import trace_rays_direct
 
 torch.set_num_threads(1)

@@ -18,7 +18,7 @@ from altair_tpu.sweep import series as jser
 import altair_tpu_torch as T
 from altair_tpu_torch import convert
 from altair_tpu_torch.config import expected_exit_fraction
-from altair_tpu_torch.core import trace as ttrace
+from altair_tpu_torch.core import route as troute, trace as ttrace
 from altair_tpu_torch.sweep import series as tser
 
 torch.set_num_threads(1)
@@ -98,40 +98,47 @@ def test_series_tracer_refusals_match_jax():
             jser._series_tracer(scene, [170.0], JCfg(engine="direct"))
         with pytest.raises(NotImplementedError):
             tser._series_tracer(convert.scene(scene), [170.0],
-                                T.TraceConfig(engine="direct"))
+                                T.TraceConfig(engine="direct"), 2048)
 
 
-def test_series_tracer_plans_one_capacity():
+def test_series_tracer_plans_one_capacity(monkeypatch):
     """The deferred rim post-pass runs at the smallest shift any member
     plans (the largest buffer); a thick-rim member sends every member to
-    the in-loop rim."""
+    the in-loop rim: the finish route, one finish launch from the source
+    (its plain version here)."""
     seen = []
-    real = ttrace.trace_rays_rim_deferred
+    real = troute._rim_deferred
 
-    def spy(*a, **kw):
-        seen.append(kw["capacity_shift"])
-        return real(*a, **kw)
+    def spy(gen, scene, source, n, cfg, capacity_shift, *a):
+        seen.append(capacity_shift)
+        return real(gen, scene, source, n, cfg, capacity_shift, *a)
 
     ports = [163.0, 178.0]
     shifts = [ttrace.rim_deferred_capacity_shift(
         T_RIM.with_(theta_max_deg=p)) for p in ports]
     assert shifts[0] != shifts[1]
-    tser.trace_rays_rim_deferred, keep = spy, tser.trace_rays_rim_deferred
-    try:
-        tracer = tser._series_tracer(T_RIM, ports, T.TraceConfig())
-        for p in ports:
-            res, rim = tracer(torch.Generator().manual_seed(1),
-                              T_RIM.with_(theta_max_deg=p), T_SOURCE, 2048,
-                              T.TraceConfig(), device="cpu")
-            assert int(rim.total) == 0 and res.status.shape == (2048,)
-    finally:
-        tser.trace_rays_rim_deferred = keep
+    monkeypatch.setattr(troute, "_rim_deferred", spy)
+    tracer = tser._series_tracer(T_RIM, ports, T.TraceConfig(), 2048)
+    for p in ports:
+        res, rim = tracer(torch.Generator().manual_seed(1),
+                          T_RIM.with_(theta_max_deg=p), T_SOURCE, 2048,
+                          T.TraceConfig(), device="cpu")
+        assert int(rim.total) == 0 and res.status.shape == (2048,)
     assert seen == [min(shifts)] * 2
+    finishes = []
+    real_finish = troute.trace_rays_finish
+
+    def spy_finish(gen, scene, source, n, cfg, *, device):
+        finishes.append(n)
+        return real_finish(gen, scene, source, n, cfg, device=device)
+
+    monkeypatch.setattr(troute, "trace_rays_finish", spy_finish)
     thick = T_RIM.with_(outer_radius=110.0)
-    res, rim = tser._series_tracer(thick, [170.0], T.TraceConfig())(
+    res, rim = tser._series_tracer(thick, [170.0], T.TraceConfig(), 512)(
         torch.Generator().manual_seed(1), thick, T_SOURCE, 512,
         T.TraceConfig(), device="cpu")
     assert int(rim.total) == 0 and (res.status != 0).all()
+    assert finishes == [512] and seen == [min(shifts)] * 2
 
 
 @functools.cache

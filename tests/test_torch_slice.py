@@ -20,7 +20,7 @@ from altair_tpu.core.score import exit_capacity, fluxmap_trace_once_compact as j
 from altair_tpu.core.trace_waves import trace_rays_auto as j_auto
 from altair_tpu.sweep.observer import sweep_detector_trace_once as j_sweep
 from altair_tpu_torch import convert
-from altair_tpu_torch.core import trace as trace_mod, trace_cuda, trace_waves
+from altair_tpu_torch.core import route, trace as trace_mod, trace_cuda
 from altair_tpu_torch.core.geometry import detector_position, line_hits_disk
 from altair_tpu_torch.core.score import fluxmap_trace_once_compact as t_score
 from altair_tpu_torch.sweep import sweep_detector_trace_once as t_sweep
@@ -126,34 +126,36 @@ def test_large_batch_simulate_matches_jax(monkeypatch):
 
 @pytest.mark.parametrize("where", ["handoff", "rim"])
 def test_overflow_reaches_rim_total(monkeypatch, where):
-    """A waves continuation whose schedule is too tight loses rays, and the
-    count reaches RimOverflow.total: the rim continuation of a float64
-    scene (exact rim), which the kernels do not take.  The refill
-    handoff's straggler finish (simple mode) runs the finish kernel, which
-    loses no ray: there the total is 0 and no waves tracer runs."""
-    real_waves = trace_waves.trace_waves_from_state
-    calls = []
+    """Rays a trace cannot finish reach RimOverflow.total.  The refill
+    handoff's straggler finish (simple mode) runs the finish kernel, whose
+    buffer holds every straggler: the total is 0.  The deferred rim of a
+    float64 scene (the eager continuation) whose buffer is smaller than
+    its clipped rays leaves the rest EXITED and counts exactly them."""
+    src = convert.source(SOURCE_OVERNIGHT)
+    gen = torch.Generator().manual_seed(2)
+    if where == "handoff":
+        monkeypatch.setattr(trace_cuda, "REFILL_MIN", 1024)
+        scene = convert.scene(SCENE.with_(exact_rim=False))
+        cfg = T.TraceConfig(engine="simulate")
+        assert route.plan([scene], cfg, 8192) == ("refill", None, None)
+        _, ovf = T.trace_rays_auto(gen, scene, src, 8192, cfg, device="cpu")
+        assert int(ovf) == 0
+        return
+    clipped = []
+    real_gather = route._compact_gather
 
-    def tight_waves(gen, scene, state, cfg=T.TraceConfig(), *a, device,
-                    **k):
-        calls.append(state[0].x.shape[0])
-        return real_waves(gen, scene, state, cfg, wave_iters=4, shrink=64,
-                          min_wave=4, device=device)
+    def spy_gather(mask, *a, **k):
+        clipped.append(int(mask.sum()))
+        return real_gather(mask, *a, **k)
 
-    monkeypatch.setattr(trace_waves, "trace_waves_from_state", tight_waves)
-    monkeypatch.setattr(trace_cuda, "REFILL_MIN",
-                        1024 if where == "handoff" else 1 << 30)
-    monkeypatch.setattr(trace_mod, "_WAVES_CONTINUATION_MIN", 256)
-    scene = convert.scene(SCENE.with_(exact_rim=where == "rim"))
-    dtype = torch.float64 if where == "rim" else torch.float32
-    _, ovf = T.trace_rays_auto(torch.Generator().manual_seed(2), scene,
-                               convert.source(SOURCE_OVERNIGHT), 8192,
-                               T.TraceConfig(engine="simulate", dtype=dtype),
-                               device="cpu")
-    if where == "rim":
-        assert calls and int(ovf) > 0
-    else:
-        assert calls == [] and int(ovf) == 0
+    monkeypatch.setattr(route, "_compact_gather", spy_gather)
+    # 32,768 >> 7 = 256 lanes, the buffer's minimum; ~2% of the rays clip
+    _, ovf = route.trace_rays_rim_deferred(
+        gen, convert.scene(SCENE), src, N,
+        T.TraceConfig(dtype=torch.float64, engine="simulate"),
+        capacity_shift=7, device="cpu")
+    assert len(clipped) == 1 and clipped[0] > 2 * 256
+    assert int(ovf) == clipped[0] - 256 and int(ovf.grouped_drops) == 0
 
 
 @pytest.mark.parametrize("engine", ["auto", "simulate"])

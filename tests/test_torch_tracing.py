@@ -11,7 +11,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from altair_tpu_torch import (SCENE_OPTIMIZE, SOURCE_OVERNIGHT, SurfaceModel,
                               TraceConfig, trace_rays_auto)
-from altair_tpu_torch.core import trace as T
+from altair_tpu_torch.core import route as route_mod, trace as T
 from altair_tpu_torch.io import profiling
 
 torch.set_num_threads(1)
@@ -36,10 +36,10 @@ def _spans(name=None):
             if name is None or s["name"] == name]
 
 
-def _waves_trace():
+def _waves_trace(monkeypatch):
+    monkeypatch.setattr(route_mod, "WAVES_MIN", 512)
     return trace_rays_auto(torch.Generator().manual_seed(3), WAVES_SCENE,
-                           SOURCE_OVERNIGHT, 1024, WAVES_CFG,
-                           waves_threshold=512, device="cpu")
+                           SOURCE_OVERNIGHT, 1024, WAVES_CFG, device="cpu")
 
 
 class _AtenOps(TorchDispatchMode):
@@ -104,7 +104,7 @@ def test_off_records_nothing_and_reads_no_clock(monkeypatch):
     with profiling.span("outside") as sp:
         sp.set(a=1)
     assert not sp.on
-    res, rim = _waves_trace()
+    res, rim = _waves_trace(monkeypatch)
     rec = profiling.records()
     assert calls == [] and rec["spans"] == [] and rec["counters"] == {}
     # the always-on counters still count
@@ -112,16 +112,16 @@ def test_off_records_nothing_and_reads_no_clock(monkeypatch):
     assert "lane_steps_live" not in rec["totals"]
 
 
-def test_tracing_adds_only_the_documented_lane_ops():
+def test_tracing_adds_only_the_documented_lane_ops(monkeypatch):
     """The aten ops of a small trace with tracing on, less the lane-use
     ops, are the ops with tracing off, and the results are equal.  The
     lane-use ops: per loop step a compare and an add; per ``loop.eager`` a
     ``zeros_like`` and a ``sum``; per ``loop.waves`` a ``zeros_like`` a
     wave, a ``cat`` and a ``sum``."""
     with _AtenOps() as off:
-        res_off, _ = _waves_trace()
+        res_off, _ = _waves_trace(monkeypatch)
     with profiling.tracing(), _AtenOps() as on:
-        res_on, _ = _waves_trace()
+        res_on, _ = _waves_trace(monkeypatch)
     eager, waves = _spans("loop.eager"), _spans("loop.waves")
     assert len(eager) == 2 and len(waves) == 1
     steps = (sum(s["attrs"]["iterations"] for s in eager)
