@@ -52,6 +52,8 @@ KERNELS = {
     "score": ("altair_tpu_torch/csrc/score.cu", None),
 }
 
+# threads of one finish block (csrc/finish.cu THREADS)
+FINISH_THREADS = 256
 # lanes of one refill unit: a warp's pool and the handoff unit
 # (csrc/refill.cu LANES)
 REFILL_LANES = 128
@@ -605,14 +607,55 @@ def finish_plain(seed, scene_vec, rim_vec, state, model, max_iters: int,
                        Vec3(dx, dy, dz), nb)
 
 
+def finish_lanes_per_thread(n: int, slots: int) -> int:
+    """The finish kernel's pool depth for a buffer of ``n`` lanes on a card
+    that keeps ``slots`` of the kernel's threads resident: ceil(n / slots)
+    lanes a thread, so 1 (one lane a thread, every lane started at once)
+    at or below the slots.  At a depth above 1 the launch is the resident
+    grid, and a thread takes the next lane when its own stops."""
+    return max(1, -(-n // slots))
+
+
+def finish_grid_threads(n: int, slots: int) -> int:
+    """The threads of a finish launch over ``n`` lanes: one a lane,
+    rounded up to whole blocks, at depth 1; the resident grid (``slots``,
+    whole blocks) above it."""
+    if finish_lanes_per_thread(n, slots) > 1:
+        return slots
+    return -(-n // FINISH_THREADS) * FINISH_THREADS
+
+
 @functools.cache
-def _finish_fn():
-    fn = _build.load("finish").altair_finish
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
-                    ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_longlong] + [ctypes.c_void_p] * 24)
-    fn.restype = ctypes.c_int
-    return fn
+def _finish_lib() -> ctypes.CDLL:
+    lib = _build.load("finish")
+    lib.altair_finish.argtypes = ([ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_uint32, ctypes.c_uint32,
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_longlong, ctypes.c_longlong]
+                                  + [ctypes.c_void_p] * 24)
+    lib.altair_finish.restype = ctypes.c_int
+    lib.altair_finish_slots.argtypes = [ctypes.c_int, ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_longlong)]
+    lib.altair_finish_slots.restype = ctypes.c_int
+    if lib.altair_finish_threads() != FINISH_THREADS:
+        raise RuntimeError("csrc/finish.cu's block is not "
+                           f"{FINISH_THREADS} threads")
+    return lib
+
+
+@functools.cache
+def finish_slots(device: torch.device, model: int, exact_rim: bool) -> int:
+    """The threads the CUDA ``device`` keeps resident at once for the
+    finish kernel's pooled instantiation of the law ``model`` and the
+    physics ``exact_rim`` (its occupancy times the SMs)."""
+    out = ctypes.c_longlong(0)
+    with torch.cuda.device(device):
+        err = _finish_lib().altair_finish_slots(int(model), int(exact_rim),
+                                                ctypes.byref(out))
+    if err != 0 or out.value < FINISH_THREADS:
+        raise RuntimeError("finish kernel occupancy query failed: CUDA "
+                           f"error {err}, {out.value} threads")
+    return out.value
 
 
 def _finish_cuda(seed, scene_vec, rim_vec, state, model, max_iters,
@@ -629,13 +672,16 @@ def _finish_cuda(seed, scene_vec, rim_vec, state, model, max_iters,
         # dense planes
         planes = [t.contiguous() for t in (*pos, *direction, *prev, status,
                                            bounces, in_gap)]
-        fn = _finish_fn()
+        fn = _finish_lib().altair_finish
+        slots = finish_slots(dev, int(model), bool(exact_rim))
+        depth = finish_lanes_per_thread(n, slots)
         with (span("kernel.finish", n=n, exact_rim=bool(exact_rim),
-                   entry=entry),
+                   entry=entry, lanes_per_thread=depth),
               torch.cuda.device(dev)):
             err = fn(scene_vec.data_ptr(), rim_vec.data_ptr(),
                      int(seed[0]) & _M32, int(seed[1]) & _M32,
                      int(max_iters), int(model), int(bool(exact_rim)), n,
+                     finish_grid_threads(n, slots),
                      *[t.data_ptr() for t in planes],
                      *[o.data_ptr() for o in out],
                      torch.cuda.current_stream(dev).cuda_stream)
@@ -643,6 +689,7 @@ def _finish_cuda(seed, scene_vec, rim_vec, state, model, max_iters,
             raise RuntimeError(f"finish kernel launch failed: CUDA error {err}")
         count("kernel.finish.launches")
         count("kernel.finish.rays", n)
+        count("kernel.finish.pooled", int(depth > 1))
     (status, lx, ly, lz, sx, sy, sz, dx, dy, dz, bounces) = out
     return TraceResult(status, Vec3(lx, ly, lz), Vec3(sx, sy, sz),
                        Vec3(dx, dy, dz), bounces)

@@ -29,8 +29,12 @@ Counters the port keeps (names as ``records()`` gives them):
 * ``kernel.bounce.launches``, ``kernel.refill.launches``,
   ``kernel.finish.launches`` and ``kernel.<name>.rays`` (the rays those
   launches took), always; each launch's size is also the ``n`` of its
-  ``kernel.<name>`` span (``kernel.finish`` also says ``exact_rim`` and
-  ``entry``: ``source`` or ``state``);
+  ``kernel.<name>`` span (``kernel.finish`` also says ``exact_rim``,
+  ``entry``: ``source`` or ``state``, and ``lanes_per_thread``: the
+  launch's pool depth, 1 where every lane has a thread of its own);
+* ``kernel.finish.pooled``: the finish launches whose buffer was wider
+  than the card's resident threads, so that threads took further lanes
+  (``lanes_per_thread`` above 1), always;
 * ``kernel.score.launches``, always, and ``kernel.score.pairs`` (the
   launch's rows times its positions, a device count), only while
   tracing; a launch's rows and positions are also the ``n`` and

@@ -13,21 +13,24 @@ records the ``finish`` calls of one trace (``finish_calls``), then
 replays each: the kernel under CUDA events (mean
 of ``R`` launches after a warm one), ``finish_plain`` once on the host
 clock, the lanes on which the two agree (status and bounces) and the
-largest position or direction difference on them, and the bound: the
+largest position or direction difference on them, the bound: the
 longest lane's steps times one step's latency (``finish_step_latency_ms``:
 one thread, the port closed, a wall that absorbs nothing, 4096 steps
-against 1).  Prints one JSON line per call; ``--out`` also writes them to
-a file.  Each line carries the card's name and power limit.
+against 1), the launch's lanes a thread (its pool depth) and its lane use
+(``lane_use``).  Prints one JSON line per call; ``--out`` also writes
+them to a file.  Each line carries the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import heapq
 import json
 import math
 import sys
 import time
 
+import numpy as np
 import torch
 
 MAX_BOUNCES = 4096
@@ -139,6 +142,48 @@ def compare(a, b):
     return float(agree.float().mean()), err
 
 
+def schedule(steps, threads: int) -> np.ndarray:
+    """The loop iterations each warp of a finish launch runs, from its
+    lanes' step counts ``steps`` (one per lane of the buffer) and its
+    ``threads``, in the kernel's order (``csrc/finish.cu``): thread g
+    starts on lane g; a thread whose lane stops takes its warp's next
+    lane at the next iteration, the threads free at one iteration in
+    thread order, and steps it in that iteration (a lane that takes no
+    step holds it that one iteration).  Warp w's next lanes are its rows
+    w*32 + r*threads, less its trailing rows in which no lane steps (the
+    kernel writes those back first).  At ``threads >= len(steps)`` no
+    thread takes a second lane, and each warp runs its longest lane."""
+    s = np.maximum(np.asarray(steps, dtype=np.int64), 0)
+    n = s.size
+    end = np.zeros(threads, dtype=np.int64)
+    end[:min(n, threads)] = s[:threads]
+    if threads < n:
+        cost = np.maximum(s, 1)
+        for w in range(0, threads, 32):
+            heap = [(int(end[j]), j) for j in range(w, w + 32)]
+            heapq.heapify(heap)
+            rows = list(range(w + threads, n, threads))
+            while rows and not s[rows[-1]:rows[-1] + 32].any():
+                rows.pop()
+            for row in rows:
+                for lane in range(row, min(n, row + 32)):
+                    t, j = heapq.heappop(heap)
+                    heapq.heappush(heap, (t + int(cost[lane]), j))
+            for t, j in heap:
+                end[j] = t
+    return end.reshape(-1, 32).max(axis=1)
+
+
+def lane_use(steps, threads: int) -> tuple[float, int]:
+    """Lane-steps over the threads' iterations (each warp's 32 threads
+    times its iterations, ``schedule``), and the longest warp's
+    iterations: the share of the launch's thread-iterations that stepped
+    a lane, leaving out the physics' own branch divergence."""
+    s = np.maximum(np.asarray(steps, dtype=np.int64), 0)
+    warps = schedule(s, threads)
+    return float(s.sum() / max(32 * int(warps.sum()), 1)), int(warps.max())
+
+
 def finish_step_latency_ms(device, reps: int = 5) -> float:
     """One thread of the finish kernel (exact rim, MIXED_BRDF, interior)
     with the port closed (cos_cap below the sphere) and a wall that
@@ -180,11 +225,13 @@ def events_ms(fn, reps: int = 5) -> float:
 
 def time_call(call: dict, latency_ms: float, reps: int = 20) -> dict:
     """One recorded ``finish`` call: the kernel's time, the plain
-    version's, their agreement, and the bound (its longest lane's steps,
-    a bounce or an exit each, times ``latency_ms``)."""
+    version's, their agreement, the bound (its longest lane's steps, a
+    bounce or an exit each, times ``latency_ms``), the launch's lanes a
+    thread and its lane use (``lane_use``)."""
     from .core import trace_cuda
 
     state = call["state"]
+    n = int(state[3].shape[0])
     kernel_ms = events_ms(lambda: trace_cuda.finish(**call), reps)
     k = trace_cuda.finish(**call)
     torch.cuda.synchronize()
@@ -195,12 +242,18 @@ def time_call(call: dict, latency_ms: float, reps: int = 20) -> dict:
     agree, err = compare(k, p)
     steps = (k.n_bounces - state[4]).long() + (k.status == 1).long()
     longest = int(steps.max()) if steps.numel() else 0
-    return {"n": int(state[3].shape[0]), "exact_rim": bool(call["exact_rim"]),
+    slots = trace_cuda.finish_slots(state[3].device, int(call["model"]),
+                                    bool(call["exact_rim"]))
+    threads = trace_cuda.finish_grid_threads(n, slots)
+    use, iters = lane_use(steps.cpu().numpy(), threads)
+    return {"n": n, "exact_rim": bool(call["exact_rim"]),
             "lanes": lane_kinds(state), "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "agree": agree, "max_abs_err_cm": err,
             "lane_steps": int(steps.sum()), "longest_lane_steps": longest,
             "step_latency_ms": latency_ms, "bound_ms": longest * latency_ms,
-            "bound_by": "serial chain"}
+            "bound_by": "serial chain", "slots": slots, "threads": threads,
+            "lanes_per_thread": trace_cuda.finish_lanes_per_thread(n, slots),
+            "lane_use": use, "schedule_iterations": iters}
 
 
 def main(argv=None) -> int:

@@ -221,8 +221,8 @@ def phase_finish_timing(device):
     the MIXED_BRDF trace-once map's rim continuation at 100,000 rays, the
     4,194,304-ray trace's straggler finish and rim continuation, and last
     the in-sphere retrace sweep's chunk of 800,000 rays from the source
-    through the thick shell): kernel and plain times, agreement, and the
-    serial-chain bound."""
+    through the thick shell): kernel and plain times, agreement, the
+    serial-chain bound, and each launch's lanes a thread and lane use."""
     from altair_tpu_torch import SCENE_OPTIMIZE, SurfaceModel, profile_finish
 
     latency = profile_finish.finish_step_latency_ms(device)
@@ -1133,6 +1133,9 @@ def phase_insphere(device, n=N_HEADLINE, seed=1200):
     check(len(finishes) == 46
           and {(f["n"], f["entry"]) for f in finishes} == {(8 * n, "source")},
           f"insphere retrace: finish launches {finishes[:3]}...")
+    pooled = rec["totals"].get("kernel.finish.pooled", 0)
+    check(pooled == sum(f["lanes_per_thread"] > 1 for f in finishes),
+          f"insphere retrace: {pooled} pooled launches, spans {finishes[:3]}")
     check(not loops, f"insphere retrace: loops {sorted(set(loops))}")
     z = _sigma_apart(re.fractions, once.fractions, n, n)
     check(z.max() < 5, f"insphere retrace: {z.max()} sigma from trace-once")
@@ -1142,6 +1145,9 @@ def phase_insphere(device, n=N_HEADLINE, seed=1200):
                           "kernel.finish.launches", 0),
                       "finish_rays": rec["totals"].get("kernel.finish.rays",
                                                        0),
+                      "finish_pooled": pooled,
+                      "lanes_per_thread": sorted({f["lanes_per_thread"]
+                                                  for f in finishes}),
                       "disk_tests": rec["totals"].get("insphere.disk_tests",
                                                       0),
                       "max_sigma": float(z.max()),

@@ -240,3 +240,73 @@ def test_finish_guards():
         trace_cuda.finish((1, 2), sv.to(torch.float64), rim, state, 0, 8,
                           True)
     assert isinstance(state[0], Vec3)
+
+
+# the H100's resident threads for a finish instantiation of 4 blocks of
+# 256 a multiprocessor, and for 8
+SLOTS_4, SLOTS_8 = 132 * 4 * 256, 132 * 8 * 256
+
+
+@pytest.mark.parametrize("n,slots,depth,threads", [
+    (1, SLOTS_4, 1, 256),
+    (6_250, SLOTS_4, 1, 6_400),              # map100k's rim continuation
+    (40_960, SLOTS_4, 1, 40_960),            # trace4M's straggler finish
+    (SLOTS_4, SLOTS_4, 1, SLOTS_4),
+    (SLOTS_4 + 1, SLOTS_4, 2, SLOTS_4),
+    (262_144, SLOTS_4, 2, SLOTS_4),          # trace4M's rim continuation
+    (262_144, SLOTS_8, 1, 262_144),
+    (800_000, SLOTS_4, 6, SLOTS_4),          # the in-sphere sweep's chunk
+    (800_000, SLOTS_8, 3, SLOTS_8),
+])
+def test_finish_pool_engages_above_the_resident_threads(n, slots, depth,
+                                                        threads):
+    """The finish launch's pool depth is ceil(n / slots): 1 (one lane a
+    thread, a grid of whole blocks over the buffer) at or below the card's
+    resident threads, and above them the resident grid, whose threads take
+    the lanes left over."""
+    assert trace_cuda.finish_lanes_per_thread(n, slots) == depth
+    assert trace_cuda.finish_grid_threads(n, slots) == threads
+    assert threads % trace_cuda.FINISH_THREADS == 0
+    assert threads * depth >= n
+
+
+@pytest.mark.parametrize("threads", [1_024, 2_048])
+def test_finish_schedule_hands_out_every_lane_once(threads):
+    """The lane-use model of a pooled launch (``profile_finish.schedule``)
+    spends each lane's steps on one thread: the warps' iterations cover
+    every lane-step, a warp runs no shorter than its longest lane, and one
+    lane a thread gives each warp its longest lane."""
+    from altair_tpu_torch import profile_finish
+
+    rng = np.random.default_rng(3)
+    steps = rng.geometric(1 / 40, size=5_000)
+    steps[::7] = 0                                # lanes dead at entry
+    warps = profile_finish.schedule(steps, threads)
+    assert warps.shape == (threads // 32,)
+    assert 32 * warps.sum() >= steps.sum()
+    assert warps.max() >= steps.max()
+    use, longest = profile_finish.lane_use(steps, threads)
+    assert 0 < use <= 1 and longest == warps.max()
+    static = profile_finish.schedule(steps, 5_024)
+    padded = np.concatenate([steps, np.zeros(24, dtype=steps.dtype)])
+    assert np.array_equal(static, padded.reshape(-1, 32).max(axis=1))
+    # the pool keeps more of its thread-iterations stepping than one lane
+    # a thread over the same buffer
+    assert use > profile_finish.lane_use(steps, 5_024)[0]
+
+
+def test_finish_schedule_is_the_kernels_order():
+    """One warp, two rows: the threads free at one iteration take the next
+    lanes of the warp's pool in thread order."""
+    from altair_tpu_torch import profile_finish
+
+    steps = np.ones(64, dtype=np.int64)
+    steps[:32] = np.arange(1, 33)                 # thread j frees at j + 1
+    steps[32:] = np.arange(32, 0, -1)             # lane 32 + j: 32 - j steps
+    # thread j takes lane 32 + j at iteration j + 1 and ends at 33
+    assert profile_finish.schedule(steps, 32).tolist() == [33]
+    assert profile_finish.schedule(steps, 64).tolist() == [32, 32]
+    # a trailing row with no live lane leaves the pool: no thread spends
+    # an iteration on it
+    steps[32:] = 0
+    assert profile_finish.schedule(steps, 32).tolist() == [32]
